@@ -1,0 +1,2 @@
+from .partition import dirichlet_partition, split_train_val_test  # noqa: F401
+from .synthetic import SyntheticImageDataset, make_synthetic_images  # noqa: F401

@@ -1,0 +1,142 @@
+"""CUDA build, binding and launch wrappers of `csrc/ensemble_fitness.cu`.
+
+The source is compiled with nvcc for sm_90a into a shared library with a
+plain C interface the first time a wrapper launches it, into
+`build/repro_torch/<hash of the source>/` at the root of the checkout,
+and loaded with ctypes. Nothing is built or loaded at import.
+
+Two entry points, one kernel (replacing `ensemble_fitness` and
+`ensemble_fitness_batched` of `repro/kernels/ensemble_fitness/kernel.py`):
+
+  ensemble_fitness          — one client: pop (P, M), acc (M,), S (M, M).
+  ensemble_fitness_batched  — N clients in ONE launch: pop (N, P, M),
+                              acc (N, M), S (N, M, M).
+
+Both count their launches in `KERNEL.launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+from repro_torch.obs.metrics import Stopwatch
+
+_PKG = Path(__file__).resolve().parents[2]            # src/repro_torch
+SOURCE = _PKG / "csrc" / "ensemble_fitness.cu"
+BUILD_ROOT = _PKG.parents[1] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class _Kernel:
+    """The loaded library plus its launch count and build record."""
+
+    def __init__(self):
+        self.lib = None
+        self.launches = 0
+        self.build_seconds = None     # None: loaded from an earlier build
+        self.ptxas = ""               # nvcc -Xptxas -v report of the build
+
+
+KERNEL = _Kernel()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = Path("/usr/local/cuda/bin/nvcc")
+    if fallback.exists():
+        return str(fallback)
+    raise RuntimeError("nvcc not found: building the ensemble_fitness CUDA "
+                       "kernel needs the CUDA toolkit")
+
+
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernel library."""
+    if KERNEL.lib is not None:
+        return KERNEL.lib
+    src = SOURCE.read_bytes()
+    out_dir = BUILD_ROOT / hashlib.sha256(src).hexdigest()[:16]
+    lib_path = out_dir / "libensemble_fitness.so"
+    if not lib_path.exists():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        tmp = out_dir / f"libensemble_fitness.{os.getpid()}.so"
+        sw = Stopwatch().start()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                               str(SOURCE)], capture_output=True, text=True)
+        KERNEL.build_seconds = sw.stop()
+        KERNEL.ptxas = proc.stderr.strip()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                               f"{SOURCE}:\n{proc.stderr}")
+        os.replace(tmp, lib_path)
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.ensemble_fitness_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    KERNEL.lib = lib
+    return lib
+
+
+def _check(name, t, shape):
+    if not t.is_cuda:
+        raise ValueError(f"ensemble_fitness: {name} must be a CUDA tensor, "
+                         f"got device {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"ensemble_fitness: {name} must be float32, got "
+                         f"{t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"ensemble_fitness: {name} has shape "
+                         f"{tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"ensemble_fitness: {name} must be contiguous")
+
+
+def ensemble_fitness_batched(pop, acc, S):
+    """pop (N, P, M) f32; acc (N, M); S (N, M, M), all contiguous on one
+    CUDA device -> (strength (N, P), diversity (N, P))."""
+    if pop.dim() != 3:
+        raise ValueError(f"ensemble_fitness_batched: pop must be (N, P, M), "
+                         f"got shape {tuple(pop.shape)}")
+    N, P, M = pop.shape
+    _check("pop", pop, (N, P, M))
+    _check("acc", acc, (N, M))
+    _check("S", S, (N, M, M))
+    if acc.device != pop.device or S.device != pop.device:
+        raise ValueError("ensemble_fitness: pop, acc and S must lie on one "
+                         "device")
+    strength = torch.empty((N, P), dtype=torch.float32, device=pop.device)
+    diversity = torch.empty((N, P), dtype=torch.float32, device=pop.device)
+    if N == 0 or P == 0:
+        return strength, diversity
+    lib = build()
+    diag = torch.diagonal(S, dim1=1, dim2=2).contiguous()
+    with torch.cuda.device(pop.device):   # the library launches on the
+        err = lib.ensemble_fitness_launch(  # thread's current device
+            pop.data_ptr(), acc.data_ptr(), S.data_ptr(), diag.data_ptr(),
+            strength.data_ptr(), diversity.data_ptr(), N, P, M,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ensemble_fitness launch failed: CUDA error "
+                           f"{err} at (N, P, M) = {(N, P, M)}")
+    KERNEL.launches += 1
+    return strength, diversity
+
+
+def ensemble_fitness(pop, acc, S):
+    """pop (P, M) f32; acc (M,); S (M, M) -> (strength (P,),
+    diversity (P,)): the batched launch at N = 1."""
+    if pop.dim() != 2:
+        raise ValueError(f"ensemble_fitness: pop must be (P, M), got shape "
+                         f"{tuple(pop.shape)}")
+    st, dv = ensemble_fitness_batched(pop.unsqueeze(0), acc.unsqueeze(0),
+                                      S.unsqueeze(0))
+    return st[0], dv[0]

@@ -1,0 +1,52 @@
+"""The port stands alone: importing every `repro_torch` module and running
+a tiny synchronous slice on the CPU loads neither JAX nor any module of
+the reference package `repro`."""
+import os
+import subprocess
+import sys
+
+import pytest
+
+pytest.importorskip("torch")
+
+REPO = os.path.join(os.path.dirname(__file__), "..")
+
+SCRIPT = r"""
+import importlib, json, pkgutil, sys
+import repro_torch
+for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(m.name)
+from repro_torch.sim import Experiment, ExperimentSpec
+spec = ExperimentSpec.from_dict({
+    "data": {"kind": "synthetic_images", "n_clients": 2, "n_classes": 4,
+             "n_samples": 240, "image_size": 8},
+    "train": {"families": ["cnn4", "vgg"], "max_epochs": 1, "width": 4},
+    "selection": {"pop_size": 8, "generations": 2, "k": 2,
+                  "use_kernel": True}})
+res = Experiment.from_spec(spec, device="cpu").run()
+assert res.test_acc.shape == (2,)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print(json.dumps(bad))
+"""
+
+
+def test_port_imports_neither_jax_nor_reference():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_cuda_request_without_cuda_raises():
+    import torch
+
+    from repro_torch.device import resolve_device
+    assert resolve_device("cpu") == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert resolve_device(None).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            resolve_device(None)

@@ -1,0 +1,148 @@
+"""The whole synchronous slice of the port against the JAX reference at a
+tiny size: 3 clients, families (cnn4, resnet), width 8, 600 images of
+8x8, NSGA-II population 16 over 5 generations, k = 2.
+
+Both packages get the same datasets and the same models (trained in JAX
+for one epoch and carried across with `params_from_jax`). Store
+predictions agree to atol 1e-4; selection is compared by outcome (the
+random streams differ by design); serving the same fixed chromosomes
+gives the same votes to atol 1e-5.
+"""
+import copy
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro.core.fedpae import train_all_clients  # noqa: E402
+from repro.sim import Experiment as JExperiment  # noqa: E402
+from repro.sim import fedpae_config as jfedpae_config  # noqa: E402
+from repro.sim.build import build_client_datasets as jdatasets  # noqa: E402
+from repro_torch.fl.client import ClientData  # noqa: E402
+from repro_torch.models.cnn import CNNConfig, params_from_jax  # noqa: E402
+from repro_torch.sim import Experiment, ExperimentSpec  # noqa: E402
+from repro_torch.sim.build import build_client_datasets as tdatasets  # noqa: E402
+
+K = 2
+# the fleet-mean validation accuracy of the two packages' winners may
+# differ by this much: the GA's random streams differ by design
+VAL_ACC_BAND = 0.1
+SPEC = {
+    "data": {"kind": "synthetic_images", "n_clients": 3, "n_classes": 10,
+             "n_samples": 600, "image_size": 8, "alpha": 0.1},
+    "train": {"families": ["cnn4", "resnet"], "max_epochs": 1,
+              "patience": 2, "width": 8},
+    "selection": {"pop_size": 16, "generations": 5, "k": K,
+                  "ensemble_k": K, "use_kernel": True},
+    "schedule": {"mode": "sync"},
+    "seed": 0,
+}
+REPO = os.path.join(os.path.dirname(__file__), "..")
+
+
+@pytest.fixture(scope="module")
+def runs():
+    spec = ExperimentSpec.from_dict(copy.deepcopy(SPEC))
+    from repro.sim import ExperimentSpec as JSpec
+    jspec = JSpec.from_dict(copy.deepcopy(SPEC))
+    jds = jdatasets(jspec.data, jspec.seed)
+    jmodels, jccfg = train_all_clients(jds, jfedpae_config(jspec), 10)
+    tds = [ClientData(*(np.array(getattr(d, f)) for f in
+                        ("x_tr", "y_tr", "x_va", "y_va", "x_te", "y_te")))
+           for d in jds]
+    tmodels = {key: (params_from_jax(key[1], {n: np.asarray(v) for n, v
+                                              in params.items()}), va)
+               for key, (params, va) in jmodels.items()}
+    tccfg = CNNConfig(n_classes=10, width=8, in_channels=3)
+    jres = JExperiment(jspec, datasets=jds, models=jmodels,
+                       ccfg=jccfg).run()
+    tres = Experiment(spec, datasets=tds, models=tmodels, ccfg=tccfg,
+                      device="cpu").run()
+    return spec, jres, tres, tds
+
+
+def test_datasets_equal_reference():
+    spec = ExperimentSpec.from_dict(copy.deepcopy(SPEC))
+    for t, j in zip(tdatasets(spec.data, spec.seed),
+                    jdatasets(spec.data, spec.seed)):
+        for f in ("x_tr", "y_tr", "x_va", "y_va", "x_te", "y_te"):
+            np.testing.assert_array_equal(getattr(t, f), getattr(j, f))
+
+
+def test_store_predictions_match(runs):
+    _, jres, tres, _ = runs
+    for ts, js in zip(tres.stores, jres.stores):
+        np.testing.assert_array_equal(ts.mask, js.mask)
+        np.testing.assert_array_equal(ts.labels, js.labels)
+        np.testing.assert_allclose(ts.preds, js.preds, atol=1e-4)
+
+
+def test_selection_outcome(runs):
+    _, jres, tres, _ = runs
+    for c, store in enumerate(tres.stores):
+        res = tres.engine.results[c]
+        chrom = res["chromosome"]
+        assert chrom.sum() == K and store.mask[chrom > 0.5].all()
+        row = np.flatnonzero((res["pop"] == chrom).all(-1))
+        assert res["pareto_mask"][row].all()     # winner is on its front
+    tval = np.mean([r["val_accuracy"] for r in tres.engine.results.values()])
+    jval = np.mean([float(r["val_accuracy"])
+                    for r in jres.engine.results.values()])
+    assert abs(tval - jval) <= VAL_ACC_BAND, (tval, jval)
+    assert np.isfinite(tres.test_acc).all() and tres.test_acc.shape == (3,)
+
+
+def test_serving_fixed_chromosomes_gives_same_votes(runs):
+    _, jres, tres, tds = runs
+    for c, d in enumerate(tds):
+        jchrom = np.asarray(jres.engine.chromosome(c))
+        tres.engine.results[c] = {
+            "chromosome": jchrom,
+            "slot_gen": tres.stores[c].slot_gen.copy()}
+        tvote, tchrom = tres.engine.serve(c, d.x_te)
+        jvote, _ = jres.engine.serve(c, d.x_te)
+        np.testing.assert_array_equal(tchrom, jchrom)
+        np.testing.assert_allclose(tvote, np.asarray(jvote), atol=1e-5)
+
+
+def test_spec_runs_through_cli(tmp_path):
+    path = tmp_path / "spec.json"
+    path.write_text(json.dumps(SPEC, allow_nan=False))
+    out = tmp_path / "summary.json"
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.sim.run", "--spec", str(path),
+         "--device", "cpu", "--json-out", str(out)],
+        capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    summary = json.loads(out.read_text())
+    assert summary["mode"] == "sync" and len(summary["test_acc"]) == 3
+    assert set(summary["perf"]) == {"train_s", "exchange_s", "select_s",
+                                    "serve_s"}
+
+
+def test_unported_paths_raise(tmp_path):
+    spec = ExperimentSpec.from_dict(
+        {**SPEC, "schedule": {"mode": "async"}})
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        Experiment.from_spec(spec, device="cpu").build()
+    restack = ExperimentSpec.from_dict(
+        {**SPEC, "selection": {**SPEC["selection"],
+                               "device_resident": False}})
+    with pytest.raises(NotImplementedError, match="restack"):
+        Experiment.from_spec(restack, device="cpu").build()
+    bad = tmp_path / "bad.json"
+    bad.write_text(json.dumps({**SPEC, "obs": {"enabled": True}},
+                              allow_nan=False))
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.sim.run", "--spec", str(bad),
+         "--device", "cpu"], capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src")),
+        timeout=120)
+    assert proc.returncode == 2 and "queue 1" in proc.stderr
