@@ -3,9 +3,13 @@
 The package mirrors `repro` file for file (`repro_torch/core/nsga2.py`
 answers to `repro/core/nsga2.py`) and imports neither JAX nor `repro`.
 Entry points run on the CUDA device unless the caller passes
-`device="cpu"`; the one hand-written kernel on the synchronous path,
-`kernels/ensemble_fitness`, is CUDA C++ built with nvcc at first use.
+`device="cpu"`. The hand-written kernels are CUDA C++ built with nvcc at
+first use: `kernels/ensemble_fitness` on the synchronous path and
+`kernels/flash_attention` on the prefill of LLM ensemble serving.
 
     from repro_torch.sim import Experiment, ExperimentSpec
     result = Experiment.from_spec(spec, device="cuda").run()
+
+    from repro_torch.launch.serve import serve_batch
+    tokens = serve_batch(cfg, members, prompts, gen_len=16)
 """

@@ -1,0 +1,108 @@
+"""nvcc -> ctypes build step shared by the port's CUDA kernels.
+
+Each kernel is a `CudaLibrary`: one source under `repro_torch/csrc/`
+with a plain C interface, compiled with nvcc for sm_90a into a shared
+library the first time it is needed, into `build/repro_torch/<hash of the
+source>/` at the root of the checkout, and loaded with ctypes. Nothing is
+built or loaded at import. `build_all` starts one nvcc per source at once
+and then waits for each, so several kernels build in parallel.
+
+A library records its build seconds (None: loaded from an earlier build),
+nvcc's ptxas report (`-Xptxas -v`) and a launch count, which its wrapper
+raises by one for every kernel launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+from repro_torch.obs.metrics import Stopwatch
+
+PKG = Path(__file__).resolve().parents[1]              # src/repro_torch
+BUILD_ROOT = PKG.parents[1] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    fallback = Path("/usr/local/cuda/bin/nvcc")
+    if fallback.exists():
+        return str(fallback)
+    raise RuntimeError("nvcc not found: building the port's CUDA kernels "
+                       "needs the CUDA toolkit")
+
+
+class CudaLibrary:
+    """One CUDA source built into `lib<name>.so`. `functions` maps each
+    exported C function to (argtypes, restype)."""
+
+    def __init__(self, source: str, name: str,
+                 functions: Dict[str, tuple]):
+        self.source = PKG / "csrc" / source
+        self.name = name
+        self.functions = functions
+        self.lib: Optional[ctypes.CDLL] = None
+        self.launches = 0
+        self.build_seconds: Optional[float] = None
+        self.ptxas = ""
+        self._proc: Optional[subprocess.Popen] = None
+        self._sw: Optional[Stopwatch] = None
+        self._tmp: Optional[Path] = None
+
+    def _lib_path(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
+        return BUILD_ROOT / digest / f"lib{self.name}.so"
+
+    def start(self) -> None:
+        """Start nvcc in the background unless the library is loaded,
+        already compiling, or built by an earlier run."""
+        if self.lib is not None or self._proc is not None:
+            return
+        lib_path = self._lib_path()
+        if lib_path.exists():
+            return
+        lib_path.parent.mkdir(parents=True, exist_ok=True)
+        self._tmp = lib_path.parent / f"lib{self.name}.{os.getpid()}.so"
+        self._sw = Stopwatch().start()
+        self._proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(self._tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def build(self) -> ctypes.CDLL:
+        """Compile (once per source hash) and load; returns the library."""
+        if self.lib is not None:
+            return self.lib
+        self.start()
+        lib_path = self._lib_path()
+        if self._proc is not None:
+            _, err = self._proc.communicate()
+            self.build_seconds = self._sw.stop()
+            self.ptxas = err.strip()
+            code, self._proc = self._proc.returncode, None
+            if code != 0:
+                raise RuntimeError(f"nvcc failed ({code}) on "
+                                   f"{self.source}:\n{err}")
+            os.replace(self._tmp, lib_path)
+        lib = ctypes.CDLL(str(lib_path))
+        for fname, (argtypes, restype) in self.functions.items():
+            fn = getattr(lib, fname)
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
+        self.lib = lib
+        return lib
+
+
+def build_all(libraries: Sequence[CudaLibrary]) -> None:
+    """Start every library's nvcc at once, then wait for each."""
+    for lib in libraries:
+        lib.start()
+    for lib in libraries:
+        lib.build()

@@ -3,7 +3,8 @@
 The source is compiled with nvcc for sm_90a into a shared library with a
 plain C interface the first time a wrapper launches it, into
 `build/repro_torch/<hash of the source>/` at the root of the checkout,
-and loaded with ctypes. Nothing is built or loaded at import.
+and loaded with ctypes (`kernels/_build.py`). Nothing is built or loaded
+at import.
 
 Two entry points, one kernel (replacing `ensemble_fitness` and
 `ensemble_fitness_batched` of `repro/kernels/ensemble_fitness/kernel.py`):
@@ -17,73 +18,14 @@ Both count their launches in `KERNEL.launches`.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-from repro_torch.obs.metrics import Stopwatch
+from repro_torch.kernels._build import CudaLibrary
 
-_PKG = Path(__file__).resolve().parents[2]            # src/repro_torch
-SOURCE = _PKG / "csrc" / "ensemble_fitness.cu"
-BUILD_ROOT = _PKG.parents[1] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-class _Kernel:
-    """The loaded library plus its launch count and build record."""
-
-    def __init__(self):
-        self.lib = None
-        self.launches = 0
-        self.build_seconds = None     # None: loaded from an earlier build
-        self.ptxas = ""               # nvcc -Xptxas -v report of the build
-
-
-KERNEL = _Kernel()
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    fallback = Path("/usr/local/cuda/bin/nvcc")
-    if fallback.exists():
-        return str(fallback)
-    raise RuntimeError("nvcc not found: building the ensemble_fitness CUDA "
-                       "kernel needs the CUDA toolkit")
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
-    if KERNEL.lib is not None:
-        return KERNEL.lib
-    src = SOURCE.read_bytes()
-    out_dir = BUILD_ROOT / hashlib.sha256(src).hexdigest()[:16]
-    lib_path = out_dir / "libensemble_fitness.so"
-    if not lib_path.exists():
-        out_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out_dir / f"libensemble_fitness.{os.getpid()}.so"
-        sw = Stopwatch().start()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        KERNEL.build_seconds = sw.stop()
-        KERNEL.ptxas = proc.stderr.strip()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
-                               f"{SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    fn = lib.ensemble_fitness_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    KERNEL.lib = lib
-    return lib
+KERNEL = CudaLibrary("ensemble_fitness.cu", "ensemble_fitness", {
+    "ensemble_fitness_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                                + [ctypes.c_void_p], ctypes.c_int)})
 
 
 def _check(name, t, shape):
@@ -117,7 +59,7 @@ def ensemble_fitness_batched(pop, acc, S):
     diversity = torch.empty((N, P), dtype=torch.float32, device=pop.device)
     if N == 0 or P == 0:
         return strength, diversity
-    lib = build()
+    lib = KERNEL.build()
     diag = torch.diagonal(S, dim1=1, dim2=2).contiguous()
     with torch.cuda.device(pop.device):   # the library launches on the
         err = lib.ensemble_fitness_launch(  # thread's current device

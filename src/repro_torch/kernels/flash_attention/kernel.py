@@ -1,0 +1,79 @@
+"""CUDA build, binding and launch wrapper of `csrc/flash_attention.cu`.
+
+Replaces `flash_attention` of `repro/kernels/flash_attention/kernel.py`.
+The source is built with nvcc for sm_90a at first launch through
+`kernels/_build.py`; nothing is built or loaded at import. Every launch
+adds one to `KERNEL.launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels._build import CudaLibrary
+
+KERNEL = CudaLibrary("flash_attention.cu", "flash_attention", {
+    "flash_attention_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                               + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+                               ctypes.c_int)})
+HEAD_DIMS = (32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q, k, v):
+    tensors = (("q", q), ("k", k), ("v", v))
+    for name, t in tensors:
+        if t.dim() != 4:
+            raise ValueError(f"flash_attention: {name} must be 4-d, got "
+                             f"shape {tuple(t.shape)}")
+        if t.dtype not in _DTYPE_CODES or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: q, k and v must all be "
+                             f"float32 or all bfloat16, got {q.dtype}, "
+                             f"{k.dtype}, {v.dtype}")
+    B, H, _, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if k.shape[1] == 0 or H % k.shape[1]:
+        raise ValueError(f"flash_attention: H = {H} is not a multiple of "
+                         f"KV = {k.shape[1]}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {hd} not in "
+                         f"{HEAD_DIMS}")
+    if k.shape[2] == 0:
+        raise ValueError("flash_attention: no keys (Sk = 0)")
+    for name, t in tensors:
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} must be a CUDA "
+                             f"tensor on q's device, got device {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be contiguous "
+                             "and 16-byte aligned")
+
+
+def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
+    """q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd), contiguous, on one CUDA
+    device, float32 or bfloat16 alike -> (B, H, Sq, hd) of q's dtype."""
+    _check(q, k, v)
+    if window < 0 or softcap < 0:
+        raise ValueError(f"flash_attention: window {window} and softcap "
+                         f"{softcap} must be >= 0")
+    B, H, Sq, hd = q.shape
+    KV, Sk = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = KERNEL.build()
+    with torch.cuda.device(q.device):    # the library launches on the
+        err = lib.flash_attention_launch(  # thread's current device
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            _DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, hd, int(bool(causal)),
+            int(window), float(hd ** -0.5), float(softcap),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}"
+                           f" at (B, H, KV, Sq, Sk, hd) = "
+                           f"{(B, H, KV, Sq, Sk, hd)}, {q.dtype}")
+    KERNEL.launches += 1
+    return out

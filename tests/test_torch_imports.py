@@ -1,6 +1,6 @@
-"""The port stands alone: importing every `repro_torch` module and running
-a tiny synchronous slice on the CPU loads neither JAX nor any module of
-the reference package `repro`."""
+"""The port stands alone: importing every `repro_torch` module, running
+a tiny synchronous slice and a tiny ensemble `serve_batch` on the CPU
+loads neither JAX nor any module of the reference package `repro`."""
 import os
 import subprocess
 import sys
@@ -25,6 +25,16 @@ spec = ExperimentSpec.from_dict({
                   "use_kernel": True}})
 res = Experiment.from_spec(spec, device="cpu").run()
 assert res.test_acc.shape == (2,)
+import torch
+from repro_torch.configs import get_smoke
+from repro_torch.launch.serve import serve_batch
+from repro_torch.models.transformer import init_params
+cfg = get_smoke("llama3-8b").replace(dtype="float32", attn_impl="pallas")
+members = [init_params(cfg, torch.Generator().manual_seed(i))
+           for i in range(2)]
+toks = serve_batch(cfg, members, torch.zeros((2, 8), dtype=torch.int32),
+                   gen_len=3)
+assert toks.shape == (2, 3)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
