@@ -5,10 +5,10 @@
 
 1. Device: the card's name and power limit (nvidia-smi), the torch
    device name and count.
-2. Build: compiles `src/repro_torch/csrc/ensemble_fitness.cu` and
-   `src/repro_torch/csrc/flash_attention.cu` with nvcc for sm_90a, one
-   nvcc each, started together, and prints each build's seconds and
-   ptxas register / shared-memory report.
+2. Build: compiles the four sources under `src/repro_torch/csrc/`
+   (ensemble_fitness, flash_attention, ssd_scan, wkv_scan) with nvcc for
+   sm_90a, one nvcc each, started together, and prints each build's
+   seconds and ptxas register / shared-memory report.
 3. Kernel: both entry points of ensemble_fitness at the main path's
    shapes and at edge shapes, each held against its plain PyTorch
    version (max abs error <= 1e-5), and timed with CUDA events against
@@ -29,17 +29,43 @@
    two shapes: timed in turns against the plain version, the kernel's
    device time from torch.profiler, scaled_dot_product_attention timed as
    the library yardstick (never called by the port), and the bound.
-6. Serve: FedPAE soft-vote serving (`launch/serve.py::serve_batch`) of
-   two full-width llama3-8b members (32 layers, bf16, attn_impl="pallas",
-   random weights from seeds 0 and 1) on 4 x 2048-token prompts, 16
-   generated tokens. The flash launch count is reset just before the run
-   and must come out at n_layers x members = 64; the tokens must be
-   (4, 16) and inside the vocabulary; weights [1, 0] must give member
-   0's own tokens. Reports prefill seconds, decode tokens/s, peak memory,
-   the device's busy share of the prefill and of one decode step (with
-   that step's launches), and the pallas-vs-xla gap of member 0's
-   last-position probabilities.
-7. The `kernels` JSON line, then the result line.
+6. Kernel: ssd_scan and wkv_scan at the reference's test shapes
+   (tests/test_kernels.py:86-90,107-111), its padding shapes (S = 200
+   and 100), a wkv case with a carried state and one with strong decay
+   (logw = -2, past the range of the TPU kernel's factorisation), and
+   the serving slices' shapes, ssd (4, 2048, 112, 64, 64) and wkv (4,
+   2048, 40, 64), in fp32 and bf16 (dt and logw fp32 as the models pass
+   them; at the slices' shapes B and C are views of one tensor and wkv
+   carries a nonzero state, as the models pass them), each held against
+   its plain version (the naive recurrence) on
+   the card: y max abs error / max |y| < 1e-5 in fp32 and < 2**-7 (one
+   bf16 step at the top of y's range) in bf16, the fp32 state atol =
+   rtol = 1e-3. At the slices' shapes: timed in turns against the plain
+   version, the kernel's device time from torch.profiler, the torch copy
+   of the model's chunked scan timed as the chunked-PyTorch comparator
+   (no single PyTorch call computes either scan), and the bound: the
+   least multiply-add work of the function (the chunked form at its
+   cheapest chunk size, C B^T once a batch on the bf16 tensor cores)
+   against the bytes.
+7. Model check: the smoke rwkv6-3b and zamba2-7b in fp32, the same
+   weights on the card (kernels) and on the CPU (plain versions):
+   prefill logits and states agree (atol 3e-4, rtol 1e-3).
+8. Serve, in turn: FedPAE soft-vote serving
+   (`launch/serve.py::serve_batch`) of two full-width members (bf16,
+   random weights from seeds 0 and 1) of llama3-8b (attn_impl="pallas":
+   flash_attention on every layer), rwkv6-3b (wkv_scan on every layer)
+   and zamba2-7b (ssd_scan on every Mamba2 layer) on 4 x 2048-token
+   prompts, 16 generated tokens. The kernel's launch count is reset
+   just before the run and must come out at n_layers x members (64, 64,
+   162); the tokens must be (4, 16) and inside the vocabulary; weights
+   [1, 0] must give member 0's own tokens; every last-position prefill
+   logit and one decode step's logits must be finite. Reports prefill
+   seconds, decode tokens/s, peak memory (each phase frees the previous
+   one's members first), the device's busy share of the prefill (with
+   its largest kernels) and of one decode step (with its launches), and
+   for llama3-8b the pallas-vs-xla gap of member 0's last-position
+   probabilities.
+9. The `kernels` JSON line, then the result line.
 
 Exits non-zero at the first failure, and when no CUDA device is present.
 TF32 is off for cuBLAS and cuDNN throughout, so every fp32 product is a
@@ -64,8 +90,16 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM, bf16 dense tensor cores
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SLICE_SHAPE = (4, 32, 8, 2048, 2048, 128)     # llama3-8b prefill, batch 4
 LONG_SHAPE = (1, 32, 8, 8192, 8192, 128)
-SERVE = {"arch": "llama3-8b", "attn_impl": "pallas", "seeds": [0, 1],
-         "batch": 4, "prompt_len": 2048, "gen_len": 16}   # a member a seed
+SERVE = {"seeds": [0, 1], "batch": 4, "prompt_len": 2048,
+         "gen_len": 16}                                    # a member a seed
+SERVES = [  # (arch, config overrides, the kernel package its prefill runs)
+    ("llama3-8b", {"attn_impl": "pallas"}, "flash_attention"),
+    ("rwkv6-3b", {}, "wkv_scan"),
+    ("zamba2-7b", {}, "ssd_scan")]
+SCAN_Y_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}   # of max |y|
+SCAN_STATE_TOL = 1e-3
+SSD_SLICE = (4, 2048, 112, 64, 64)     # zamba2-7b prefill, batch 4
+WKV_SLICE = (4, 2048, 40, 64)          # rwkv6-3b prefill, batch 4
 PAPER_SPEC = {
     "data": {"kind": "synthetic_images", "n_clients": 20, "n_classes": 10,
              "n_samples": 60000, "image_size": 10, "channels": 3,
@@ -154,9 +188,12 @@ def time_ms(torch, fn, iters=200, warmup=20):
 
 
 def device_ms(torch, fn, iters=50, name="ensemble_fitness_kernel"):
-    """Device time per call from torch.profiler: (the kernel whose name
-    holds `name` alone, every kernel the call launches), in ms; None
-    where the profiler saw no device time."""
+    """Device time from torch.profiler: (the kernel whose name holds
+    `name`, per recorded launch; every kernel of the calls, per call;
+    the number of launches of `name` recorded), times in ms, None where
+    the profiler saw no device time. The profiler may drop records of
+    long kernels on this machine, so the kernel's time is taken over the
+    launches it recorded, and their count is reported."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -167,9 +204,12 @@ def device_ms(torch, fn, iters=50, name="ensemble_fitness_kernel"):
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type.name == "CUDA" and e.self_device_time_total]
-    own = sum(e.self_device_time_total for e in events if name in e.key)
-    every = sum(e.self_device_time_total for e in events)
-    return tuple(us / 1e3 / iters if us else None for us in (own, every))
+    own = [e for e in events if name in e.key]
+    n_own = sum(e.count for e in own)
+    own_us = sum(e.self_device_time_total for e in own)
+    every_us = sum(e.self_device_time_total for e in events)
+    return (own_us / 1e3 / n_own if own_us else None,
+            every_us / 1e3 / iters if every_us else None, n_own)
 
 
 def kernel_phase(torch):
@@ -214,13 +254,14 @@ def kernel_phase(torch):
             p1, k1, k2, p2 = (time_ms(torch, fn) for fn in
                               (run_plain, run_kernel, run_kernel, run_plain))
             k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            own_ms, call_ms = device_ms(torch, run_kernel)
+            own_ms, call_ms, n_rec = device_ms(torch, run_kernel)
             (b_ms, b_by), (d_ms, d_by) = fitness_bound(pop)
             timings[(entry, N, P, M)] = (k_ms, p_ms, b_ms, b_by)
             print(f"  time {entry} (N, P, M) = {(N, P, M)}: kernel "
                   f"{k_ms:.6f} ms ({k1:.6f}, {k2:.6f}), plain {p_ms:.6f} ms "
-                  f"({p1:.6f}, {p2:.6f}) per call; on the device (profiler) "
-                  f"the kernel {own_ms} ms, all kernels of the call "
+                  f"({p1:.6f}, {p2:.6f}) per call; on the device (profiler, "
+                  f"{n_rec} of 50 launches recorded) the kernel {own_ms} ms, "
+                  f"all kernels of the call "
                   f"{call_ms} ms; bound {b_ms:.6f} ms ({b_by}; dense "
                   f"product {d_ms:.6f} ms, {d_by}), share of bound "
                   f"{b_ms / k_ms:.4f}; no single PyTorch call computes "
@@ -436,8 +477,8 @@ def flash_phase(torch):
                               for fn in (run_plain, run_kernel, run_kernel,
                                          run_plain))
             lib_ms = time_ms(torch, run_sdpa, iters=iters, warmup=3)
-            own_ms, _ = device_ms(torch, run_kernel, iters=iters,
-                                  name="flash_fwd")
+            own_ms, _, n_rec = device_ms(torch, run_kernel, iters=iters,
+                                         name="flash_fwd")
             b_ms, b_by, flops, nbytes = attention_bound(*shape)
             k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
             timings[shape] = dict(err=err, ms=k_ms, plain_ms=p_ms,
@@ -447,7 +488,8 @@ def flash_phase(torch):
                   f"{k2:.6f}), plain {p_ms:.6f} ms ({p1:.6f}, {p2:.6f}), "
                   f"SDPA {lib_ms:.6f} ms (max abs diff to plain "
                   f"{sdpa_err:.3e}) per call; kernel on the device "
-                  f"(profiler) {own_ms} ms; bound {b_ms:.6f} ms ({b_by}: "
+                  f"(profiler, {n_rec} of {iters} launches recorded) "
+                  f"{own_ms} ms; bound {b_ms:.6f} ms ({b_by}: "
                   f"{flops} FLOP, {nbytes} bytes), share of bound "
                   f"{b_ms / k_ms:.4f}, {flops / k_ms / 1e9:.1f} TFLOP/s")
         del q, k, v
@@ -462,74 +504,17 @@ def flash_phase(torch):
     return timings
 
 
-def serve_phase(torch):
-    """Two full-width llama3-8b members served through serve_batch."""
+def profile_serve(torch, cfg, members, prompts, toks, label="serve"):
+    """Under torch.profiler: the prefill of every member through
+    serve_batch (device busy share, the largest kernels) and one decode
+    step of member 0 (busy share, launches)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
-    from repro_torch.data import TokenPipeline
-    from repro_torch.kernels.flash_attention import kernel
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import transformer as tf
     from repro_torch.obs.metrics import Stopwatch
 
-    cfg = get_config(SERVE["arch"]).replace(attn_impl=SERVE["attn_impl"])
-    B, S, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
-    print("serve config:", json.dumps({"serve": SERVE, "model": {
-        k: getattr(cfg, k) for k in ("n_layers", "d_model", "n_heads",
-                                     "n_kv_heads", "head_dim", "d_ff",
-                                     "vocab", "dtype", "source")}},
-        allow_nan=False))
-    sw = Stopwatch().start()
-    members = [tf.init_params(cfg, torch.Generator(device="cuda")
-                              .manual_seed(seed)) for seed in SERVE["seeds"]]
-    torch.cuda.synchronize()
-    n_par = sum(p.numel() for p in members[0].parameters())
-    print(f"serve: {len(members)} members of {n_par} parameters "
-          f"initialised on the card in {sw.stop():.3f} s")
-    prompts = torch.as_tensor(next(iter(TokenPipeline(
-        cfg.vocab, B, S, seed=0)))["tokens"], device="cuda")
-    serve_batch(cfg, members, prompts, gen_len=2)      # warm-up
-    torch.cuda.synchronize()
-
-    torch.cuda.reset_peak_memory_stats()
-    kernel.KERNEL.launches = 0
-    sw = Stopwatch().start()
-    toks = serve_batch(cfg, members, prompts, gen_len=G)
-    torch.cuda.synchronize()
-    total = sw.stop()
-    launches = kernel.KERNEL.launches
-    peak = torch.cuda.max_memory_allocated()
-    expect = cfg.n_layers * len(members)
-    print(f"serve: flash_attention launches {launches}, expected "
-          f"n_layers x members = {expect}")
-    check(launches == expect, f"flash_attention launched {launches} times "
-                              f"in serve_batch, expected {expect}")
-    check(tuple(toks.shape) == (B, G) and toks.dtype == torch.int32
-          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
-          f"bad served tokens: shape {tuple(toks.shape)}, range "
-          f"[{int(toks.min())}, {int(toks.max())}]")
-
-    sw = Stopwatch().start()
-    serve_batch(cfg, members, prompts, gen_len=1)       # prefill only
-    torch.cuda.synchronize()
-    prefill = sw.stop()
-    decode_tps = B * (G - 1) / (total - prefill)
-    print(f"serve: {B} x {S} prompts, {G} tokens: serve_batch {total:.6f} "
-          f"s; prefill (gen_len 1) {prefill:.6f} s ({B * S * len(members) / prefill:.1f} "
-          f"prompt tokens/s over both members); decode {total - prefill:.6f}"
-          f" s, {decode_tps:.3f} generated tokens/s; peak device memory "
-          f"{peak} bytes ({peak / 2**30:.2f} GiB)")
-    print("serve: tokens", toks.cpu().tolist())
-
-    solo = serve_batch(cfg, members[:1], prompts, gen_len=G)
-    masked = serve_batch(cfg, members, prompts, gen_len=G,
-                         weights=[1.0, 0.0])
-    same = bool(torch.equal(solo, masked))
-    print(f"serve: weights [1, 0] == member 0 alone: {same}")
-    check(same, "serve_batch with weights [1, 0] differs from member 0 "
-                "served alone")
-
+    S = prompts.shape[1]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -540,8 +525,8 @@ def serve_phase(torch):
     events = [e for e in prof.key_averages()
               if e.device_type.name == "CUDA" and e.self_device_time_total]
     busy = sum(e.self_device_time_total for e in events) / 1e6
-    print(f"profiled prefill (both members): wall {wall:.6f} s, device "
-          f"busy {busy:.6f} s ({busy / wall:.4f} of wall)")
+    print(f"{label}: profiled prefill (both members): wall {wall:.6f} s, "
+          f"device busy {busy:.6f} s ({busy / wall:.4f} of wall)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms  "
               f"{e.count:6d} x  {e.key[:90]}")
@@ -563,24 +548,348 @@ def serve_phase(torch):
     events = [e for e in prof.key_averages()
               if e.device_type.name == "CUDA" and e.self_device_time_total]
     busy = sum(e.self_device_time_total for e in events) / 1e6
-    print(f"profiled decode step (one member): wall {wall:.6f} s, device "
-          f"busy {busy:.6f} s ({busy / wall:.4f} of wall), "
+    print(f"{label}: profiled decode step (one member): wall {wall:.6f} s, "
+          f"device busy {busy:.6f} s ({busy / wall:.4f} of wall), "
           f"{sum(e.count for e in events)} kernel launches")
 
+
+def _chunk_sizes(S):
+    """The chunk sizes a chunked scan could take at length S: the powers
+    of two that divide S (1 is the plain recurrence)."""
+    return [q for q in (2 ** i for i in range(S.bit_length())) if S % q == 0]
+
+
+def ssd_cost(Bb, S, nh, hd, ds, elem_bytes):
+    """The ssd_scan call's bytes (x, B, C and y in the activation type,
+    dt, A_log, D and h_T in fp32, each moved once) and the least
+    multiply-add work that computes it, as (fp32 FLOP, tensor-core FLOP).
+    The work is the chunked form's at the chunk size that needs least
+    time (the recurrence, 5 hd ds a (token, head), is chunk 1): per chunk
+    and (batch, head) the causal half of scores @ x, C h_prev, the state
+    update and its decay, in fp32; per chunk and batch, shared by the
+    heads, the causal half of C B^T, exact on the bf16 tensor cores when B
+    and C are bf16. The O(hd) terms of a step (exps, decay and dt
+    factors, D x) are left out, so the count stays a floor."""
+    nbytes = (elem_bytes * (2 * Bb * S * nh * hd + 2 * Bb * S * ds)
+              + 4 * (Bb * S * nh + 2 * nh + Bb * nh * hd * ds))
+    tc_rate = PEAK_BF16_FLOPS if elem_bytes == 2 else PEAK_FP32_FLOPS
+    best = None
+    for Q in _chunk_sizes(S):
+        fp32 = Bb * nh * (S // Q) * (Q * (Q + 1) * hd + 4 * Q * hd * ds
+                                     + hd * ds)
+        cb = Bb * (S // Q) * Q * (Q + 1) * ds
+        if elem_bytes != 2:
+            fp32, cb = fp32 + cb, 0
+        t = fp32 / PEAK_FP32_FLOPS + cb / tc_rate
+        if best is None or t < best[0]:
+            best = (t, fp32, cb)
+    return nbytes, best[1], best[2]
+
+
+def wkv_cost(B, S, nh, hd, elem_bytes, with_s0):
+    """The wkv_scan call's bytes (r, k, v and y in the activation type,
+    logw, u, s0 if given and s_T in fp32) and the least multiply-add work
+    that computes it, all fp32 (r and k are scaled by fp32 decays before
+    any product): the chunked form's at the chunk size that needs least
+    (the recurrence, 5 hd^2 a (token, head), is chunk 1), per chunk and
+    (batch, head) the strictly lower A and A v, r_dec s_prev, the state
+    update and its decay. The O(hd) terms of a step (exps, decays, the
+    bonus u) are left out, so the count stays a floor."""
+    nbytes = (elem_bytes * 4 * B * S * nh * hd
+              + 4 * (B * S * nh * hd + nh * hd
+                     + (2 if with_s0 else 1) * B * nh * hd * hd))
+    flops = min(B * nh * (S // Q) * (2 * Q * (Q - 1) * hd + 4 * Q * hd * hd
+                                     + hd * hd) for Q in _chunk_sizes(S))
+    return nbytes, flops, 0
+
+
+def roofline(nbytes, fp32_flops, tc_flops):
+    """(ms, bound_by): the larger of the bytes over the memory rate and
+    the operations over the peak of the unit that does them (fp32 FMA;
+    bf16 tensor cores for tc_flops)."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = fp32_flops / PEAK_FP32_FLOPS + tc_flops / PEAK_BF16_FLOPS
+    return 1e3 * max(t_bytes, t_ops), \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def ssd_case(torch, gen, Bb, S, nh, hd, ds, dtype, split=False):
+    """Inputs drawn as tests/test_kernels.py draws them; with `split`, B
+    and C are views of one (Bb, S, 2 ds) tensor, as ssm_forward passes
+    them."""
+    F = torch.nn.functional
+    n = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa
+    dt = getattr(torch, dtype)
+    B, C = (n(Bb, S, 2 * ds).to(dt).split(ds, dim=-1) if split
+            else (n(Bb, S, ds).to(dt), n(Bb, S, ds).to(dt)))
+    return (n(Bb, S, nh, hd).to(dt), F.softplus(n(Bb, S, nh)), 0.5 * n(nh),
+            B, C, torch.ones(nh, device="cuda"))
+
+
+def wkv_case(torch, gen, B, S, nh, hd, dtype, s0=False, logw=None):
+    n = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa
+    dt = getattr(torch, dtype)
+    lw = -torch.exp(n(B, S, nh, hd) - 1.0) if logw is None \
+        else torch.full((B, S, nh, hd), logw, device="cuda")
+    return (n(B, S, nh, hd).to(dt), n(B, S, nh, hd).to(dt),
+            n(B, S, nh, hd).to(dt), lw, 0.3 * n(nh, hd),
+            0.5 * n(B, nh, hd, hd) if s0 else None)
+
+
+def scan_phase(torch):
+    """ssd_scan and wkv_scan at every case against their plain versions;
+    timings at the serving slices' shapes."""
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan import ops as so
+    from repro_torch.kernels.ssd_scan import ref as sr
+    from repro_torch.kernels.wkv_scan import kernel as wk
+    from repro_torch.kernels.wkv_scan import ops as wo
+    from repro_torch.kernels.wkv_scan import ref as wr
+    from repro_torch.models.rwkv import wkv_chunk_scan
+    from repro_torch.models.ssm import ssd_chunk_scan
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = []   # (name, shape, dtype, inputs, kernel fn, plain fn, chunk)
+    for shape in [(2, 256, 4, 64, 64, 128), (1, 128, 2, 32, 16, 64),
+                  (2, 512, 3, 64, 64, 128), (2, 200, 2, 32, 16, 128),
+                  SSD_SLICE + (128,)]:
+        for dtype in ("float32", "bfloat16"):
+            cases.append(("ssd_scan", shape, dtype, ssd_case(
+                torch, gen, *shape[:5], dtype,
+                split=shape[:5] == SSD_SLICE)))
+    for shape, s0, lw in [((2, 128, 4, 64, 64), False, None),
+                          ((1, 256, 2, 32, 64), False, None),
+                          ((2, 192, 3, 64, 32), False, None),
+                          ((2, 100, 2, 32, 64), False, None),
+                          ((2, 128, 2, 32, 64), True, None),
+                          ((2, 128, 2, 64, 64), False, -2.0),
+                          (WKV_SLICE + (64,), True, None)]:
+        for dtype in ("float32", "bfloat16"):
+            cases.append(("wkv_scan", shape, dtype,
+                          wkv_case(torch, gen, *shape[:4], dtype, s0, lw)))
+    out = {}
+    for name, shape, dtype, inp in cases:
+        chunk = shape[-1]
+        if name == "ssd_scan":
+            def run_kernel(inp=inp, chunk=chunk):
+                return so.ssd_scan(*inp, chunk=chunk)
+
+            def run_plain(inp=inp):
+                return sr.ssd_scan_ref(*inp)
+
+            def run_chunked(inp=inp):
+                return ssd_chunk_scan(*inp)
+            lib, kname = sk.KERNEL, "ssd_scan_kernel"
+        else:
+            def run_kernel(inp=inp, chunk=chunk):
+                return wo.wkv_scan(*inp[:5], s0=inp[5], chunk=chunk)
+
+            def run_plain(inp=inp):
+                return wr.wkv_scan_ref(*inp)
+
+            def run_chunked(inp=inp):
+                s0 = inp[5] if inp[5] is not None else torch.zeros(
+                    (inp[0].shape[0],) + inp[4].shape + inp[4].shape[-1:],
+                    device="cuda")
+                return wkv_chunk_scan(*inp[:5], s0)
+            lib, kname = wk.KERNEL, "wkv_scan_kernel"
+        before = lib.launches
+        y, st = run_kernel()
+        torch.cuda.synchronize()
+        check(lib.launches == before + 1, f"{name} did not launch once")
+        y0, st0 = run_plain()
+        y_err = float((y.float() - y0.float()).abs().max())
+        y_rel = y_err / (float(y0.float().abs().max()) + 1e-6)
+        s_err = float((st - st0).abs().max())
+        ok = (y.dtype == y0.dtype and st.dtype == torch.float32
+              and y_rel < SCAN_Y_TOL[dtype]
+              and bool(torch.allclose(st, st0, atol=SCAN_STATE_TOL,
+                                      rtol=SCAN_STATE_TOL)))
+        print(f"kernel {name} {shape} {dtype}: y max abs err {y_err:.3e} "
+              f"({y_rel:.3e} of max |y|, limit {SCAN_Y_TOL[dtype]:.3e}); "
+              f"state max abs err {s_err:.3e}")
+        check(ok, f"{name} at {shape} {dtype} disagrees with its plain "
+                  f"version: y {y_rel} of max |y|, state {s_err}")
+        del y, st, y0, st0
+        if dtype == "bfloat16" and shape[:-1] in (SSD_SLICE, WKV_SLICE):
+            # in turns: plain, kernel, kernel, plain
+            p1, k1, k2, p2 = (time_ms(torch, fn, iters=it, warmup=1)
+                              for fn, it in ((run_plain, 3),
+                                             (run_kernel, 20),
+                                             (run_kernel, 20),
+                                             (run_plain, 3)))
+            c_ms = time_ms(torch, run_chunked, iters=5, warmup=1)
+            own_ms, _, n_rec = device_ms(torch, run_kernel, iters=10,
+                                         name=kname)
+            if name == "ssd_scan":
+                nbytes, flops, tc_flops = ssd_cost(*shape[:5], 2)
+            else:
+                nbytes, flops, tc_flops = wkv_cost(*shape[:4], 2,
+                                                   inp[5] is not None)
+            b_ms, b_by = roofline(nbytes, flops, tc_flops)
+            k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            out[name] = dict(err=y_err, ms=k_ms, plain_ms=p_ms,
+                             chunked_ms=c_ms, bound_ms=b_ms, bound_by=b_by,
+                             device_ms=own_ms)
+            print(f"  time {name} {shape[:-1]} bf16: kernel {k_ms:.6f} ms "
+                  f"({k1:.6f}, {k2:.6f}), plain {p_ms:.6f} ms ({p1:.6f}, "
+                  f"{p2:.6f}), chunked PyTorch copy {c_ms:.6f} ms per call;"
+                  f" kernel on the device (profiler, {n_rec} of 10 launches "
+                  f"recorded) {own_ms} ms; bound "
+                  f"{b_ms:.6f} ms ({b_by}: {flops} fp32 and {tc_flops} "
+                  f"bf16 tensor-core FLOP, {nbytes} bytes), "
+                  f"share of bound {b_ms / k_ms:.4f}, "
+                  f"{(flops + tc_flops) / k_ms / 1e9:.2f} TFLOP/s of the "
+                  "least work; no single PyTorch call "
+                  "computes this function (library: none)")
+        del inp
+        torch.cuda.empty_cache()
+    print("clocks/power after timing:",
+          nvidia_smi("clocks.sm,power.draw,temperature.gpu"))
+    return out
+
+
+def _tree_err(a, b):
+    """Largest |a - b| over matching tensors of two caches."""
+    if isinstance(a, dict):
+        return max(_tree_err(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return max(_tree_err(x, y) for x, y in zip(a, b))
+    return float((a.float().cpu() - b.float().cpu()).abs().max())
+
+
+def model_check_phase(torch):
+    """Smoke rwkv6-3b and zamba2-7b in fp32: the same weights give the
+    same prefill on the card (kernels) as on the CPU (plain versions)."""
+    import numpy as np
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as tf
+    for arch in ("rwkv6-3b", "zamba2-7b"):
+        cfg = get_smoke(arch).replace(dtype="float32")
+        cpu = tf.init_params(cfg, torch.Generator().manual_seed(3))
+        card = copy.deepcopy(cpu).to("cuda")
+        toks = np.random.default_rng(4).integers(
+            0, cfg.vocab, (2, 200)).astype(np.int32)
+        with torch.inference_mode():
+            want, wc = tf.forward(cpu, cfg, torch.as_tensor(toks),
+                                  mode="prefill")
+            got, c = tf.forward(card, cfg, torch.as_tensor(toks,
+                                                           device="cuda"),
+                                mode="prefill")
+        torch.cuda.synchronize()
+        ok = bool(torch.allclose(got.cpu(), want, atol=3e-4, rtol=1e-3))
+        err = float((got.cpu() - want).abs().max())
+        c_err = _tree_err(c, wc)
+        print(f"model check {arch} smoke fp32, S = 200: card vs CPU prefill "
+              f"logits max abs diff {err:.3e}, states {c_err:.3e}")
+        check(ok and c_err < 1e-3, f"{arch}: card and CPU prefill disagree "
+                                   f"(logits {err}, states {c_err})")
+
+
+def serve_phase(torch, arch, overrides, kname):
+    """Two full-width members of `arch` served through serve_batch; every
+    prefill layer of the family runs kernel `kname`."""
+    import importlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.obs.metrics import Stopwatch
+
+    kernel = importlib.import_module(f"repro_torch.kernels.{kname}.kernel")
+    cfg = get_config(arch).replace(**overrides)
+    B, S, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
+    torch.cuda.empty_cache()
+    print(f"serve {arch} config:", json.dumps({
+        "serve": dict(SERVE, arch=arch, **overrides), "model": {
+            k: getattr(cfg, k) for k in (
+                "family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+                "head_dim", "d_ff", "vocab", "ssm_state", "ssm_head_dim",
+                "shared_attn_every", "n_shared_attn", "rwkv_head_dim",
+                "attn_impl", "dtype", "source")}}, allow_nan=False))
+    sw = Stopwatch().start()
+    members = [tf.init_params(cfg, torch.Generator(device="cuda")
+                              .manual_seed(seed)) for seed in SERVE["seeds"]]
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in members[0].parameters())
+    print(f"serve {arch}: {len(members)} members of {n_par} parameters "
+          f"initialised on the card in {sw.stop():.3f} s")
+    prompts = torch.as_tensor(next(iter(TokenPipeline(
+        cfg.vocab, B, S, seed=0)))["tokens"], device="cuda")
+    serve_batch(cfg, members, prompts, gen_len=2)      # warm-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    kernel.KERNEL.launches = 0
+    sw = Stopwatch().start()
+    toks = serve_batch(cfg, members, prompts, gen_len=G)
+    torch.cuda.synchronize()
+    total = sw.stop()
+    launches = kernel.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    expect = cfg.n_layers * len(members)
+    print(f"serve {arch}: {kname} launches {launches}, expected n_layers x "
+          f"members = {expect}")
+    check(launches == expect, f"{kname} launched {launches} times in "
+                              f"serve_batch of {arch}, expected {expect}")
+    check(tuple(toks.shape) == (B, G) and toks.dtype == torch.int32
+          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
+          f"bad served tokens: shape {tuple(toks.shape)}, range "
+          f"[{int(toks.min())}, {int(toks.max())}]")
+
+    sw = Stopwatch().start()
+    serve_batch(cfg, members, prompts, gen_len=1)       # prefill only
+    torch.cuda.synchronize()
+    prefill = sw.stop()
+    decode_tps = B * (G - 1) / (total - prefill)
+    print(f"serve {arch}: {B} x {S} prompts, {G} tokens: serve_batch "
+          f"{total:.6f} s; prefill (gen_len 1) {prefill:.6f} s "
+          f"({B * S * len(members) / prefill:.1f} prompt tokens/s over both "
+          f"members); decode {total - prefill:.6f} s, {decode_tps:.3f} "
+          f"generated tokens/s; peak device memory {peak} bytes "
+          f"({peak / 2**30:.2f} GiB)")
+    print(f"serve {arch}: tokens", toks.cpu().tolist())
+
+    solo = serve_batch(cfg, members[:1], prompts, gen_len=G)
+    masked = serve_batch(cfg, members, prompts, gen_len=G,
+                         weights=[1.0, 0.0])
+    same = bool(torch.equal(solo, masked))
+    print(f"serve {arch}: weights [1, 0] == member 0 alone: {same}")
+    check(same, f"{arch}: serve_batch with weights [1, 0] differs from "
+                "member 0 served alone")
+    profile_serve(torch, cfg, members, prompts, toks, f"serve {arch}")
+
+    finite = True
     with torch.inference_mode():
-        probs = {}
-        for impl in ("pallas", "xla"):
-            logits, _ = tf.forward(members[0], cfg.replace(attn_impl=impl),
-                                   prompts, last_only=True)
-            probs[impl] = torch.softmax(logits[:, -1].float(), dim=-1)
-        gap = float((probs["pallas"] - probs["xla"]).abs().max())
-        agree = bool(torch.equal(probs["pallas"].argmax(-1),
-                                 probs["xla"].argmax(-1)))
-    print(f"serve: member 0 last-position probabilities, pallas vs xla "
-          f"prefill: max abs diff {gap:.3e} (largest probability "
-          f"{float(probs['xla'].max()):.3e}); same argmax: {agree}")
-    check(gap < 1e-2, f"pallas and xla prefill disagree: {gap}")
-    del members
+        for m in members:
+            logits, cache = tf.forward(m, cfg, prompts, mode="prefill",
+                                       cache_len=S + 1, last_only=True)
+            step, _ = tf.forward(m, cfg, toks[:, :1].contiguous(),
+                                 mode="decode", cache=cache, t=S)
+            finite &= bool(torch.isfinite(logits).all()) \
+                and bool(torch.isfinite(step).all())
+            del logits, cache, step
+    print(f"serve {arch}: every last-position prefill logit and decode-step "
+          f"logit of both members finite: {finite}")
+    check(finite, f"{arch}: non-finite logits")
+
+    if cfg.attn_impl == "pallas":
+        with torch.inference_mode():
+            probs = {}
+            for impl in ("pallas", "xla"):
+                logits, _ = tf.forward(members[0],
+                                       cfg.replace(attn_impl=impl), prompts,
+                                       last_only=True)
+                probs[impl] = torch.softmax(logits[:, -1].float(), dim=-1)
+            gap = float((probs["pallas"] - probs["xla"]).abs().max())
+            agree = bool(torch.equal(probs["pallas"].argmax(-1),
+                                     probs["xla"].argmax(-1)))
+        print(f"serve {arch}: member 0 last-position probabilities, pallas "
+              f"vs xla prefill: max abs diff {gap:.3e} (largest probability "
+              f"{float(probs['xla'].max()):.3e}); same argmax: {agree}")
+        check(gap < 1e-2, f"pallas and xla prefill disagree: {gap}")
+    del members, solo, masked, prompts
     torch.cuda.empty_cache()
     return launches
 
@@ -596,13 +905,17 @@ def main() -> int:
     from repro_torch.kernels._build import build_all
     from repro_torch.kernels.ensemble_fitness import kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.wkv_scan import kernel as wkv_kernel
 
     print(nvidia_smi("name,power.limit"))
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; device "
           f"{name!r}, count {count}")
-    build_all([kernel.KERNEL, fa_kernel.KERNEL])
-    for lib in (kernel.KERNEL, fa_kernel.KERNEL):
+    libs = [kernel.KERNEL, fa_kernel.KERNEL, ssd_kernel.KERNEL,
+            wkv_kernel.KERNEL]
+    build_all(libs)
+    for lib in libs:
         built = "built" if lib.build_seconds is not None \
             else "loaded an earlier build"
         print(f"{lib.name}: {built} in {lib.build_seconds} s from "
@@ -615,7 +928,10 @@ def main() -> int:
     launches, n_select = slice_phase(torch)
     torch.cuda.empty_cache()
     flash = flash_phase(torch)[SLICE_SHAPE]
-    flash_launches = serve_phase(torch)
+    scans = scan_phase(torch)
+    model_check_phase(torch)
+    served = {kname: serve_phase(torch, arch, overrides, kname)
+              for arch, overrides, kname in SERVES}
 
     k_ms, p_ms, b_ms, b_by = timings[("batched", 32, 200, 100)]
     print(json.dumps({"kernels": [{
@@ -628,10 +944,20 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
-        "launches": flash_launches, "max_abs_err": flash["err"],
+        "launches": served["flash_attention"], "max_abs_err": flash["err"],
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
-        "library_ms": flash["library_ms"]}]}, allow_nan=False))
+        "library_ms": flash["library_ms"]}] + [{
+        "name": kname, "route": "cuda",
+        "source": f"src/repro_torch/csrc/{kname}.cu",
+        "replaces": f"src/repro/kernels/{kname}/kernel.py:{line}",
+        "launches": served[kname],
+        "max_abs_err": scans[kname]["err"], "ms": scans[kname]["ms"],
+        "plain_ms": scans[kname]["plain_ms"],
+        "bound_ms": scans[kname]["bound_ms"],
+        "bound_by": scans[kname]["bound_by"], "library_ms": None}
+        for kname, line in (("ssd_scan", 88), ("wkv_scan", 76))]},
+        allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}},
         allow_nan=False))

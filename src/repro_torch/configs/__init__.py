@@ -2,8 +2,9 @@
 per architecture, `get_config(name)` for the full-scale config and
 `get_smoke(name)` for the reduced same-family variant of the CPU tests.
 
-Only the dense transformer family is ported. Every other architecture of
-the reference's list raises NotImplementedError (ROADMAP.md queue 1).
+The dense (llama3-8b, qwen2.5-3b, gemma2-27b), ssm (rwkv6-3b) and hybrid
+(zamba2-7b) families are ported. Every other architecture of the
+reference's list raises NotImplementedError (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ ARCHS = [
     "llama3-8b",
     "paper-cnn",  # the paper's own experimental scale (FedPAE on CNN bench)
 ]
-PORTED = ("llama3-8b", "qwen2.5-3b", "gemma2-27b")
+PORTED = ("llama3-8b", "qwen2.5-3b", "gemma2-27b", "rwkv6-3b", "zamba2-7b")
 
 
 def _mod(name: str):

@@ -46,9 +46,9 @@
 //    query row, each holding a quarter of q and acc in registers, and
 //    the partial dot products meet by warp shuffles. BQ = 64, BK = 32.
 // wgmma, TMA and warp specialisation are left to a later change.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -400,11 +400,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
     flash_fwd_f32<HD><<<grid, 256, 0, stream>>>(p);
   } else {
     constexpr int smem = 4 * 64 * (HD + 8) * 2;   // 2 stages x (K, V)
-    static const cudaError_t set = cudaFuncSetAttribute(
-        flash_fwd_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (set != cudaSuccess) return set;
-    flash_fwd_bf16<HD><<<grid, 128, smem, stream>>>(p);
+    return launch_opt_in<flash_fwd_bf16<HD>>(grid, 128, smem, smem, p,
+                                             stream);
   }
   return cudaGetLastError();
 }

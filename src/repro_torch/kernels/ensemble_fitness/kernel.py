@@ -21,25 +21,17 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaLibrary
+from repro_torch.kernels._build import CudaLibrary, check_cuda, check_fp32
 
 KERNEL = CudaLibrary("ensemble_fitness.cu", "ensemble_fitness", {
     "ensemble_fitness_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
                                 + [ctypes.c_void_p], ctypes.c_int)})
 
 
-def _check(name, t, shape):
-    if not t.is_cuda:
-        raise ValueError(f"ensemble_fitness: {name} must be a CUDA tensor, "
-                         f"got device {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"ensemble_fitness: {name} must be float32, got "
-                         f"{t.dtype}")
+def _check_shape(name, t, shape):
     if tuple(t.shape) != shape:
         raise ValueError(f"ensemble_fitness: {name} has shape "
                          f"{tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"ensemble_fitness: {name} must be contiguous")
 
 
 def ensemble_fitness_batched(pop, acc, S):
@@ -49,27 +41,19 @@ def ensemble_fitness_batched(pop, acc, S):
         raise ValueError(f"ensemble_fitness_batched: pop must be (N, P, M), "
                          f"got shape {tuple(pop.shape)}")
     N, P, M = pop.shape
-    _check("pop", pop, (N, P, M))
-    _check("acc", acc, (N, M))
-    _check("S", S, (N, M, M))
-    if acc.device != pop.device or S.device != pop.device:
-        raise ValueError("ensemble_fitness: pop, acc and S must lie on one "
-                         "device")
+    _check_shape("acc", acc, (N, M))
+    _check_shape("S", S, (N, M, M))
+    check_fp32("ensemble_fitness", pop=pop, acc=acc, S=S)
+    check_cuda("ensemble_fitness", pop=pop, acc=acc, S=S)
     strength = torch.empty((N, P), dtype=torch.float32, device=pop.device)
     diversity = torch.empty((N, P), dtype=torch.float32, device=pop.device)
     if N == 0 or P == 0:
         return strength, diversity
-    lib = KERNEL.build()
     diag = torch.diagonal(S, dim1=1, dim2=2).contiguous()
-    with torch.cuda.device(pop.device):   # the library launches on the
-        err = lib.ensemble_fitness_launch(  # thread's current device
-            pop.data_ptr(), acc.data_ptr(), S.data_ptr(), diag.data_ptr(),
-            strength.data_ptr(), diversity.data_ptr(), N, P, M,
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"ensemble_fitness launch failed: CUDA error "
-                           f"{err} at (N, P, M) = {(N, P, M)}")
-    KERNEL.launches += 1
+    KERNEL.launch("ensemble_fitness_launch", pop.device, pop.data_ptr(),
+                  acc.data_ptr(), S.data_ptr(), diag.data_ptr(),
+                  strength.data_ptr(), diversity.data_ptr(), N, P, M,
+                  at=f"(N, P, M) = {(N, P, M)}")
     return strength, diversity
 
 

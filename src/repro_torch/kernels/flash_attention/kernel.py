@@ -11,26 +11,21 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels._build import CudaLibrary
+from repro_torch.kernels._build import CudaLibrary, check_cuda, check_dtypes
 
 KERNEL = CudaLibrary("flash_attention.cu", "flash_attention", {
     "flash_attention_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                                + [ctypes.c_float] * 2 + [ctypes.c_void_p],
                                ctypes.c_int)})
 HEAD_DIMS = (32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _check(q, k, v):
-    tensors = (("q", q), ("k", k), ("v", v))
-    for name, t in tensors:
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be 4-d, got "
                              f"shape {tuple(t.shape)}")
-        if t.dtype not in _DTYPE_CODES or t.dtype != q.dtype:
-            raise ValueError(f"flash_attention: q, k and v must all be "
-                             f"float32 or all bfloat16, got {q.dtype}, "
-                             f"{k.dtype}, {v.dtype}")
+    code = check_dtypes("flash_attention", q=q, k=k, v=v)
     B, H, _, hd = q.shape
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != hd:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
@@ -43,37 +38,30 @@ def _check(q, k, v):
                          f"{HEAD_DIMS}")
     if k.shape[2] == 0:
         raise ValueError("flash_attention: no keys (Sk = 0)")
-    for name, t in tensors:
-        if not t.is_cuda or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} must be a CUDA "
-                             f"tensor on q's device, got device {t.device}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} must be contiguous "
-                             "and 16-byte aligned")
+    check_cuda("flash_attention", q=q, k=k, v=v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} must be 16-byte "
+                             "aligned")
+    return code
 
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     """q: (B, H, Sq, hd); k, v: (B, KV, Sk, hd), contiguous, on one CUDA
     device, float32 or bfloat16 alike -> (B, H, Sq, hd) of q's dtype."""
-    _check(q, k, v)
+    code = _check(q, k, v)
     if window < 0 or softcap < 0:
         raise ValueError(f"flash_attention: window {window} and softcap "
                          f"{softcap} must be >= 0")
     B, H, Sq, hd = q.shape
     KV, Sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    lib = KERNEL.build()
-    with torch.cuda.device(q.device):    # the library launches on the
-        err = lib.flash_attention_launch(  # thread's current device
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[q.dtype], B, H, KV, Sq, Sk, hd, int(bool(causal)),
-            int(window), float(hd ** -0.5), float(softcap),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}"
-                           f" at (B, H, KV, Sq, Sk, hd) = "
-                           f"{(B, H, KV, Sq, Sk, hd)}, {q.dtype}")
-    KERNEL.launches += 1
+    if out.numel():
+        KERNEL.launch(
+            "flash_attention_launch", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), code, B, H, KV, Sq, Sk, hd,
+            int(bool(causal)), int(window), float(hd ** -0.5),
+            float(softcap),
+            at=f"(B, H, KV, Sq, Sk, hd) = {(B, H, KV, Sq, Sk, hd)}, "
+               f"{q.dtype}")
     return out

@@ -1,0 +1,75 @@
+"""CUDA build, binding and launch wrapper of `csrc/ssd_scan.cu`.
+
+Replaces `ssd_scan` of `repro/kernels/ssd_scan/kernel.py`. The source is
+built with nvcc for sm_90a at first launch through `kernels/_build.py`;
+nothing is built or loaded at import. Every launch adds one to
+`KERNEL.launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels._build import (CudaLibrary, check_cuda,
+                                        check_dtypes, check_fp32)
+
+KERNEL = CudaLibrary("ssd_scan.cu", "ssd_scan", {
+    "ssd_scan_launch": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+                        ctypes.c_int)})
+CHUNK = 128          # the TPU kernel's chunk; also the largest supported
+MAX_HD = MAX_DS = 64
+
+
+def _check(x, dt, A_log, B, C, D, chunk):
+    if x.dim() != 4 or dt.dim() != 3 or B.dim() != 3 or C.dim() != 3:
+        raise ValueError(f"ssd_scan: x must be 4-d and dt, B, C 3-d, got "
+                         f"{tuple(x.shape)}, {tuple(dt.shape)}, "
+                         f"{tuple(B.shape)}, {tuple(C.shape)}")
+    Bb, S, nh, hd = x.shape
+    ds = B.shape[-1]
+    if (tuple(dt.shape) != (Bb, S, nh) or tuple(B.shape) != (Bb, S, ds)
+            or C.shape != B.shape or tuple(A_log.shape) != (nh,)
+            or tuple(D.shape) != (nh,)):
+        raise ValueError(f"ssd_scan: shapes do not fit x {tuple(x.shape)}: "
+                         f"dt {tuple(dt.shape)}, B {tuple(B.shape)}, C "
+                         f"{tuple(C.shape)}, A_log {tuple(A_log.shape)}, D "
+                         f"{tuple(D.shape)}")
+    code = check_dtypes("ssd_scan", x=x, B=B, C=C)
+    check_fp32("ssd_scan", dt=dt, A_log=A_log, D=D)
+    if hd > MAX_HD or ds > MAX_DS or not 1 <= chunk <= CHUNK:
+        raise ValueError(f"ssd_scan: supports hd <= {MAX_HD}, ds <= "
+                         f"{MAX_DS} and chunk <= {CHUNK}, got hd {hd}, ds "
+                         f"{ds}, chunk {chunk}")
+    Q = min(chunk, S)
+    if S == 0 or S % Q:
+        raise ValueError(f"ssd_scan: S = {S} is not a multiple of the "
+                         f"chunk {Q}; pad it (ops.ssd_scan does)")
+    check_cuda("ssd_scan", ("B", "C"), x=x, dt=dt, A_log=A_log, B=B, C=C,
+               D=D)
+    if B.stride() != C.stride() or B.stride(-1) != 1:
+        raise ValueError(f"ssd_scan: B and C must share strides with unit "
+                         f"channel stride, got {B.stride()}, {C.stride()}")
+    return Q, code
+
+
+def ssd_scan(x, dt, A_log, B, C, D, *, chunk=CHUNK):
+    """x: (Bb, S, nh, hd) contiguous; dt: (Bb, S, nh) fp32; B, C: (Bb, S,
+    ds), unit channel stride (views of one tensor are fine); A_log, D:
+    (nh,) fp32; S a multiple of min(chunk, S). Returns (y (Bb, S, nh, hd)
+    of x's dtype, h_final (Bb, nh, hd, ds) fp32)."""
+    Q, code = _check(x, dt, A_log, B, C, D, chunk)
+    Bb, S, nh, hd = x.shape
+    ds = B.shape[-1]
+    y = torch.empty_like(x)
+    hT = torch.empty((Bb, nh, hd, ds), dtype=torch.float32, device=x.device)
+    if Bb * nh:
+        KERNEL.launch(
+            "ssd_scan_launch", x.device, x.data_ptr(), dt.data_ptr(),
+            A_log.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+            y.data_ptr(), hT.data_ptr(), code, Bb, S, nh, hd, ds, Q,
+            B.stride(0), B.stride(1),
+            at=f"(Bb, S, nh, hd, ds, Q) = {(Bb, S, nh, hd, ds, Q)}, "
+               f"{x.dtype}")
+    return y, hT

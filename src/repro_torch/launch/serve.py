@@ -4,10 +4,18 @@ paper's soft-vote inference path at LLM scale). Port of
 `repro/launch/serve.py`.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b \
+        --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
+        --device cpu
 
-With `attn_impl="pallas"` every prefill layer runs the flash-attention
-kernel (CUDA tensors) or its plain version (CPU tensors); decode
-attention is the plain `attn_core`, as in the reference.
+`serve_batch` serves every ported family through `transformer.forward`.
+Its prefill runs the family's kernel on CUDA tensors and the kernel's
+plain version on CPU tensors: with `attn_impl="pallas"` every dense
+attention layer runs flash_attention; every rwkv6 layer runs wkv_scan
+and every zamba2 Mamba2 layer ssd_scan (zamba2's shared attention keeps
+its config's plain "xla" path). Decode is plain PyTorch, as in the
+reference.
 """
 from __future__ import annotations
 

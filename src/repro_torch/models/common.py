@@ -22,7 +22,7 @@ from torch import nn
 class ModelConfig:
     """One config describes any architecture of the reference's pool
     (same fields and defaults as `repro.models.common.ModelConfig`; the
-    port runs the dense family)."""
+    port runs the dense, ssm and hybrid families)."""
 
     name: str = "model"
     family: str = "dense"  # dense | moe | ssm | hybrid | vlm | audio

@@ -1,5 +1,6 @@
 """The port stands alone: importing every `repro_torch` module, running
-a tiny synchronous slice and a tiny ensemble `serve_batch` on the CPU
+a tiny synchronous slice and a tiny ensemble `serve_batch` of each ported
+model family (dense llama3-8b, ssm rwkv6-3b, hybrid zamba2-7b) on the CPU
 loads neither JAX nor any module of the reference package `repro`."""
 import os
 import subprocess
@@ -29,12 +30,14 @@ import torch
 from repro_torch.configs import get_smoke
 from repro_torch.launch.serve import serve_batch
 from repro_torch.models.transformer import init_params
-cfg = get_smoke("llama3-8b").replace(dtype="float32", attn_impl="pallas")
-members = [init_params(cfg, torch.Generator().manual_seed(i))
-           for i in range(2)]
-toks = serve_batch(cfg, members, torch.zeros((2, 8), dtype=torch.int32),
-                   gen_len=3)
-assert toks.shape == (2, 3)
+for arch, kw in (("llama3-8b", {"attn_impl": "pallas"}), ("rwkv6-3b", {}),
+                 ("zamba2-7b", {})):
+    cfg = get_smoke(arch).replace(dtype="float32", **kw)
+    members = [init_params(cfg, torch.Generator().manual_seed(i))
+               for i in range(2)]
+    toks = serve_batch(cfg, members, torch.zeros((2, 8), dtype=torch.int32),
+                       gen_len=3)
+    assert toks.shape == (2, 3)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

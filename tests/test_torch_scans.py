@@ -1,0 +1,343 @@
+"""The port's ssd_scan and wkv_scan against the JAX reference.
+
+Inputs are made with numpy from a seed and handed to both packages, as
+tests/test_kernels.py draws them (x, r, k, v, B, C standard normal; dt =
+softplus(normal); A_log = 0.5 normal; logw = -exp(normal - 1); u = 0.3
+normal). The reference's Pallas kernels run in interpret mode. The
+plain versions (the naive recurrences) are held to the reference's own
+tolerances (tests/test_kernels.py:96-97,116-117): y max abs error /
+max |y| < 1e-5, the final state atol = rtol = 1e-3. The torch copies of
+the models' chunked scans are held to theirs to 1e-5 relative. The
+`cuda` cases hold each CUDA kernel against its plain version on the card
+and skip elsewhere.
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.ssd_scan import kernel as skernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as sops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as sref  # noqa: E402
+from repro_torch.kernels.wkv_scan import kernel as wkernel  # noqa: E402
+from repro_torch.kernels.wkv_scan import ops as wops  # noqa: E402
+from repro_torch.kernels.wkv_scan import ref as wref  # noqa: E402
+from repro_torch.models import rwkv as trwkv  # noqa: E402
+from repro_torch.models import ssm as tssm  # noqa: E402
+
+SSD_SHAPES = [  # (Bb, S, nh, hd, ds, chunk), tests/test_kernels.py:86-90
+    (2, 256, 4, 64, 64, 128),
+    (1, 128, 2, 32, 16, 64),
+    (2, 512, 3, 64, 64, 128),
+]
+WKV_SHAPES = [  # (B, S, nh, hd, chunk), tests/test_kernels.py:107-111
+    (2, 128, 4, 64, 64),
+    (1, 256, 2, 32, 64),
+    (2, 192, 3, 64, 32),
+]
+Y_REL = 1e-5
+STATE = dict(atol=1e-3, rtol=1e-3)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX reference, imported here so the `cuda` cases can run on a
+    machine without JAX."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.ssd_scan import kernel as sk
+    from repro.kernels.ssd_scan import ops as so
+    from repro.kernels.ssd_scan import ref as sr
+    from repro.kernels.wkv_scan import kernel as wk
+    from repro.kernels.wkv_scan import ops as wo
+    from repro.kernels.wkv_scan import ref as wr
+    from repro.models import rwkv, ssm
+    return SimpleNamespace(jnp=jnp, ssd=sk.ssd_scan, ssd_ops=so.ssd_scan,
+                           ssd_ref=sr.ssd_scan_ref, wkv=wk.wkv_scan,
+                           wkv_ops=wo.wkv_scan, wkv_ref=wr.wkv_scan_ref,
+                           ssd_chunk=ssm.ssd_chunk_scan,
+                           wkv_chunk=rwkv.wkv_chunk_scan)
+
+
+def _softplus(a):
+    return np.logaddexp(a, 0.0).astype(np.float32)
+
+
+def ssd_inputs(seed, Bb, S, nh, hd, ds):
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    return (n(Bb, S, nh, hd), _softplus(n(Bb, S, nh)), 0.5 * n(nh),
+            n(Bb, S, ds), n(Bb, S, ds), np.ones(nh, np.float32))
+
+
+def wkv_inputs(seed, B, S, nh, hd, s0=False):
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    out = (n(B, S, nh, hd), n(B, S, nh, hd), n(B, S, nh, hd),
+           -np.exp(n(B, S, nh, hd) - 1.0), 0.3 * n(nh, hd))
+    return out + ((0.5 * n(B, nh, hd, hd)) if s0 else None,)
+
+
+def _t(arrs, device="cpu", dtype=torch.float32, n_cast=None):
+    """numpy -> tensors; the first `n_cast` (default all) in `dtype`."""
+    n_cast = len(arrs) if n_cast is None else n_cast
+    return [None if a is None else torch.as_tensor(a).to(
+        device=device, dtype=dtype if i < n_cast else torch.float32)
+        for i, a in enumerate(arrs)]
+
+
+def _max_rel(got, want):
+    want = np.asarray(want, np.float32)
+    err = float(np.abs(got.float().cpu().numpy() - want).max())
+    return err / (float(np.abs(want).max()) + 1e-6)
+
+
+def _hold(got_y, got_s, want_y, want_s, y_rel=Y_REL, state_rel=None):
+    """y to `y_rel` of max |y|; the state to STATE, or to `state_rel` of
+    its largest entry."""
+    assert _max_rel(got_y, want_y) < y_rel
+    if state_rel is not None:
+        assert _max_rel(got_s, want_s) < state_rel
+    else:
+        np.testing.assert_allclose(got_s.float().cpu().numpy(),
+                                   np.asarray(want_s, np.float32), **STATE)
+
+
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_plain_version_matches_reference(jx, shape):
+    *dims, chunk = shape
+    arrs = ssd_inputs(0, *dims)
+    ja = [jx.jnp.asarray(a) for a in arrs]
+    got_y, got_h = sref.ssd_scan_ref(*_t(arrs))
+    assert got_y.dtype == torch.float32 and got_h.shape == (
+        dims[0], dims[2], dims[3], dims[4])
+    _hold(got_y, got_h, *jx.ssd(*ja, chunk=chunk, interpret=True))
+    _hold(got_y, got_h, *jx.ssd_ref(*ja))
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES)
+def test_wkv_plain_version_matches_reference(jx, shape):
+    *dims, chunk = shape
+    arrs = wkv_inputs(1, *dims)
+    ja = [jx.jnp.asarray(a) for a in arrs[:5]]
+    got_y, got_s = wref.wkv_scan_ref(*_t(arrs))
+    assert got_y.dtype == torch.float32
+    _hold(got_y, got_s, *jx.wkv(*ja, chunk=chunk, interpret=True))
+    _hold(got_y, got_s, *jx.wkv_ref(*ja))
+
+
+def test_wkv_plain_version_with_initial_state(jx):
+    """The carried state s0 (rwkv_forward with a cache) enters the plain
+    version as it enters the reference's."""
+    arrs = wkv_inputs(2, 2, 96, 2, 32, s0=True)
+    got_y, got_s = wref.wkv_scan_ref(*_t(arrs))
+    want = jx.wkv_ref(*(jx.jnp.asarray(a) for a in arrs))
+    _hold(got_y, got_s, *want)
+    # s0 is the state the first half of the sequence leaves behind
+    first = wref.wkv_scan_ref(*_t([a[:, :40] for a in arrs[:4]] + [arrs[4]]))
+    second = wref.wkv_scan_ref(*_t([a[:, 40:] for a in arrs[:4]]
+                                   + [arrs[4]]), s0=first[1])
+    whole = wref.wkv_scan_ref(*_t(arrs[:5]))
+    _hold(torch.cat([first[0], second[0]], 1), second[1], *whole)
+
+
+def test_ops_pad_to_the_chunk_as_the_reference(jx):
+    """ops.py pads S = 200 (ssd) and S = 100 (wkv) to the chunk with
+    steps that leave the state exact, as tests/test_kernel_ops.py shows
+    of the reference's ops.py."""
+    arrs = ssd_inputs(3, 2, 200, 2, 32, 16)
+    got = sops.ssd_scan(*_t(arrs))
+    assert got[0].shape == (2, 200, 2, 32)
+    _hold(*got, *jx.ssd_ops(*(jx.jnp.asarray(a) for a in arrs)))
+    _hold(*got, *jx.ssd_ref(*(jx.jnp.asarray(a) for a in arrs)))
+    arrs = wkv_inputs(4, 2, 100, 2, 32)
+    got = wops.wkv_scan(*_t(arrs))
+    assert got[0].shape == (2, 100, 2, 32)
+    _hold(*got, *jx.wkv_ops(*(jx.jnp.asarray(a) for a in arrs[:5])))
+    _hold(*got, *jx.wkv_ref(*(jx.jnp.asarray(a) for a in arrs[:5])))
+
+
+def test_chunked_copies_match_reference(jx):
+    """The torch copies of the models' chunked scans (two chunks each, a
+    nonzero initial wkv state) against the reference's, fp32. The wkv
+    decays are those the model's initialisation gives (logw = -exp(w0 +
+    small), w0 = -1), which the chunk of 128 steps holds in fp32's range
+    (next test)."""
+    arrs = ssd_inputs(5, 2, 512, 3, 32, 16)
+    got = tssm.ssd_chunk_scan(*_t(arrs))
+    want = jx.ssd_chunk(*(jx.jnp.asarray(a) for a in arrs))
+    _hold(*got, *want, state_rel=1e-5)
+    arrs = list(wkv_inputs(6, 2, 256, 2, 32, s0=True))
+    arrs[3] = -np.exp(-1.0 + 0.1 * np.random.default_rng(7).standard_normal(
+        arrs[3].shape)).astype(np.float32)
+    got = trwkv.wkv_chunk_scan(*_t(arrs))
+    want = jx.wkv_chunk(*(jx.jnp.asarray(a) for a in arrs))
+    _hold(*got, *want, state_rel=1e-5)
+
+
+def test_chunked_wkv_overflows_where_the_recurrence_does_not(jx):
+    """A reference-side finding, mirrored by the copy: with the kernel
+    tests' decays (logw = -exp(normal - 1)) some channels decay by more
+    than e^-88 within a chunk of 128 steps, e^{-cum} overflows fp32 and
+    the model's chunked scan returns NaN in both packages, while the
+    naive recurrence (the model path of the port on CPU tensors) stays
+    finite. The wkv_scan kernel's sub-block rebasing avoids this (its
+    `cuda` strong-decay case)."""
+    arrs = wkv_inputs(6, 2, 256, 2, 32, s0=True)
+    cum = np.cumsum(arrs[3].reshape(2, 2, 128, 2, 32), axis=2)[:, :, -1]
+    assert cum.min() < -88.7
+    y_port, _ = trwkv.wkv_chunk_scan(*_t(arrs))
+    y_ref, _ = jx.wkv_chunk(*(jx.jnp.asarray(a) for a in arrs))
+    assert not np.isfinite(np.asarray(y_ref)).all()
+    assert not bool(torch.isfinite(y_port).all())
+    y_plain, _ = wops.wkv_scan(*_t(arrs))
+    assert bool(torch.isfinite(y_plain).all())
+
+
+@pytest.mark.parametrize("bad", ["cpu", "float16", "mixed", "dt_dtype",
+                                 "hd", "chunk", "ragged", "shape"])
+def test_ssd_kernel_wrapper_raises(bad):
+    """The CUDA wrapper never falls back: a CPU tensor, a bad dtype,
+    shape, width, chunk or an unpadded S raises before any launch."""
+    x, dt, A_log, B, C, D = _t(ssd_inputs(7, 1, 64, 2, 32, 16))
+    chunk = 64
+    if bad == "float16":
+        x, B, C = x.half(), B.half(), C.half()
+    elif bad == "mixed":
+        x = x.to(torch.bfloat16)
+    elif bad == "dt_dtype":
+        dt = dt.to(torch.bfloat16)
+    elif bad == "hd":
+        x = torch.zeros((1, 64, 2, 80))
+    elif bad == "chunk":
+        chunk = 256
+    elif bad == "ragged":
+        x, dt, B, C = x[:, :40], dt[:, :40], B[:, :40], C[:, :40]
+        chunk = 32
+    elif bad == "shape":
+        D = D[:1]
+    match = {"cpu": "CUDA tensor", "float16": "float32 or all bfloat16",
+             "mixed": "float32 or all bfloat16", "dt_dtype": "dt must be",
+             "hd": "supports", "chunk": "supports", "ragged": "multiple",
+             "shape": "do not fit"}[bad]
+    before = skernel.KERNEL.launches
+    with pytest.raises(ValueError, match=match):
+        skernel.ssd_scan(x, dt, A_log, B, C, D, chunk=chunk)
+    assert skernel.KERNEL.launches == before
+
+
+@pytest.mark.parametrize("bad", ["cpu", "float16", "logw_dtype", "hd",
+                                 "chunk", "ragged", "s0"])
+def test_wkv_kernel_wrapper_raises(bad):
+    r, k, v, logw, u, _ = _t(wkv_inputs(8, 1, 64, 2, 32))
+    s0, chunk = None, 64
+    if bad == "float16":
+        r, k, v = r.half(), k.half(), v.half()
+    elif bad == "logw_dtype":
+        logw = logw.to(torch.bfloat16)
+    elif bad == "hd":
+        r = k = v = logw = torch.zeros((1, 64, 1, 96))
+        u = torch.zeros((1, 96))
+    elif bad == "chunk":
+        chunk = 128
+    elif bad == "ragged":
+        r, k, v, logw = r[:, :40], k[:, :40], v[:, :40], logw[:, :40]
+        chunk = 32
+    elif bad == "s0":
+        s0 = torch.zeros((1, 2, 32, 16))
+    match = {"cpu": "CUDA tensor", "float16": "float32 or all bfloat16",
+             "logw_dtype": "logw must be", "hd": "supports",
+             "chunk": "supports", "ragged": "multiple",
+             "s0": "do not fit"}[bad]
+    before = wkernel.KERNEL.launches
+    with pytest.raises(ValueError, match=match):
+        wkernel.wkv_scan(r, k, v, logw, u, s0, chunk=chunk)
+    assert wkernel.KERNEL.launches == before
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the card)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+BF16_Y_REL = 2.0 ** -7   # one bf16 step at the top of y's range
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SSD_SHAPES + [(2, 200, 2, 32, 16, 128)])
+def test_cuda_ssd_kernel_matches_plain_version(cuda_device, shape, dtype):
+    *dims, chunk = shape
+    dt = getattr(torch, dtype)
+    arrs = _t(ssd_inputs(9, *dims), cuda_device, dt)
+    x, dtv, A_log, B, C, D = arrs
+    args = (x, dtv.float(), A_log.float(), B, C, D.float())
+    before = skernel.KERNEL.launches
+    got = sops.ssd_scan(*args, chunk=chunk)
+    assert skernel.KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    want = sref.ssd_scan_ref(*args)
+    assert got[0].dtype == dt and got[1].dtype == torch.float32
+    _hold(*got, want[0].float().cpu().numpy(), want[1].cpu().numpy(),
+          y_rel=Y_REL if dtype == "float32" else BF16_Y_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,s0", [(s, False) for s in WKV_SHAPES]
+                         + [((2, 100, 2, 32, 64), False),
+                            ((2, 128, 2, 32, 64), True)])
+def test_cuda_wkv_kernel_matches_plain_version(cuda_device, shape, s0,
+                                               dtype):
+    *dims, chunk = shape
+    dt = getattr(torch, dtype)
+    r, k, v, logw, u, st = _t(wkv_inputs(10, *dims, s0=s0), cuda_device, dt,
+                              n_cast=3)
+    before = wkernel.KERNEL.launches
+    got = wops.wkv_scan(r, k, v, logw, u, s0=st, chunk=chunk)
+    assert wkernel.KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    want = wref.wkv_scan_ref(r, k, v, logw, u, st)
+    assert got[0].dtype == dt and got[1].dtype == torch.float32
+    _hold(*got, want[0].float().cpu().numpy(), want[1].cpu().numpy(),
+          y_rel=Y_REL if dtype == "float32" else BF16_Y_REL)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_kernel_strong_decay(cuda_device):
+    """logw = -2 on every step: 64 steps decay a channel by e^-128, past
+    fp32's range, where the reference's single factorisation r e^{cum}
+    k e^{-cum} overflows; the kernel's sub-block rebasing stays finite
+    and agrees with the recurrence."""
+    r, k, v, logw, u, _ = _t(wkv_inputs(11, 2, 128, 2, 64), cuda_device)
+    logw = torch.full_like(logw, -2.0)
+    got = wkernel.wkv_scan(r, k, v, logw, u)
+    torch.cuda.synchronize()
+    want = wref.wkv_scan_ref(r, k, v, logw, u)
+    assert bool(torch.isfinite(got[0]).all())
+    _hold(*got, want[0].cpu().numpy(), want[1].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_ops_take_the_kernels_in_the_model_layout(cuda_device):
+    """ssd_scan reads B and C as strided views of one (B, S, 2 ds)
+    tensor, as ssm_forward passes them; both ops launch their kernel."""
+    x, dt, A_log, B, C, D = _t(ssd_inputs(12, 2, 256, 4, 64, 32),
+                               cuda_device)
+    bc = torch.cat([B, C], dim=-1)
+    Bv, Cv = torch.split(bc, 32, dim=-1)
+    assert not Bv.is_contiguous()
+    before = skernel.KERNEL.launches
+    got = sops.ssd_scan(x, dt, A_log, Bv, Cv, D)
+    assert skernel.KERNEL.launches == before + 1
+    want = sref.ssd_scan_ref(x, dt, A_log, B, C, D)
+    _hold(*got, want[0].cpu().numpy(), want[1].cpu().numpy())
+    r, k, v, logw, u, _ = _t(wkv_inputs(13, 1, 64, 2, 32), cuda_device)
+    before = wkernel.KERNEL.launches
+    wops.wkv_scan(r, k, v, logw, u)
+    assert wkernel.KERNEL.launches == before + 1

@@ -65,7 +65,7 @@ def test_configs_mirror_the_reference():
             assert vars(ours) == vars(theirs)
     assert vars(ModelConfig()) == vars(JConfig())
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        get_config("zamba2-7b")
+        get_config("arctic-480b")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
