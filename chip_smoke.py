@@ -22,11 +22,17 @@
    The launch count is reset just before the run and must come out at
    2 * generations + 1 per selection.
 5. Kernel: flash_attention at the reference's test shapes and variants,
-   a ragged S = 100, the serving slice's shape (4, 32, 8, 2048, 2048,
-   128) and the long-context shape (1, 32, 8, 8192, 8192, 128), bf16
-   causal, each held against its plain version on the card (fp32 atol =
-   rtol = 2e-5, bf16 2e-2, as tests/test_kernels.py:70,83). At the last
-   two shapes: timed in turns against the plain version, the kernel's
+   head dim 112, bf16 window and softcap at hd 64, 112 and 128, a ragged
+   S = 100, the serving slice's shape (4, 32, 8, 2048, 2048, 128),
+   zamba2-7b's shared-attention shape (4, 32, 32, 2048, 2048, 112), also
+   with window and softcap, and the long-context shape (1, 32, 8, 8192,
+   8192, 128), bf16 causal, each held against its plain version on the
+   card (fp32 atol = rtol = 2e-5, bf16 2e-2, as
+   tests/test_kernels.py:70,83). At the slice's shape ops.flash_attention
+   on the same data in the model layout (B, S, H, hd) must equal the
+   kernel's output bitwise and come out contiguous. At the three large
+   causal shapes: timed in turns against the plain version (and, at the
+   slice's shape, through ops.py on the model layout), the kernel's
    device time from torch.profiler, scaled_dot_product_attention timed as
    the library yardstick (never called by the port), and the bound.
 6. Kernel: ssd_scan and wkv_scan at the reference's test shapes
@@ -40,13 +46,18 @@
    its plain version (the naive recurrence) on
    the card: y max abs error / max |y| < 1e-5 in fp32 and < 2**-7 (one
    bf16 step at the top of y's range) in bf16, the fp32 state atol =
-   rtol = 1e-3. At the slices' shapes: timed in turns against the plain
-   version, the kernel's device time from torch.profiler, the torch copy
-   of the model's chunked scan timed as the chunked-PyTorch comparator
-   (no single PyTorch call computes either scan), and the bound: the
-   least multiply-add work of the function (the chunked form at its
-   cheapest chunk size, C B^T once a batch on the bf16 tensor cores)
-   against the bytes.
+   rtol = 1e-3. At ssd's slice shape y is also held against a float64
+   recurrence: within 1e-6 of max |y| in fp32, printed in bf16. At the
+   slices' shapes: timed in turns against the plain version, the
+   kernels' device time from torch.profiler (every kernel of a call),
+   the torch copy of the model's chunked scan timed as the
+   chunked-PyTorch comparator (no single PyTorch call computes either
+   scan), and the bound: the least multiply-add work of the function
+   (the chunked form at its cheapest chunk size, C B^T once a batch) on
+   the bf16 tensor cores, each product with an fp32 factor counted at
+   the bf16 terms that keep fp32 accuracy (3 against an exact bf16
+   operand, 6 for two fp32 factors), against the bytes; the count with
+   the fp32 factors on the FMA units is printed beside it.
 7. Model check: the smoke rwkv6-3b and zamba2-7b in fp32, the same
    weights on the card (kernels) and on the CPU (plain versions):
    prefill logits and states agree (atol 3e-4, rtol 1e-3).
@@ -65,7 +76,9 @@
    its largest kernels) and of one decode step (with its launches), and
    for llama3-8b the pallas-vs-xla gap of member 0's last-position
    probabilities.
-9. The `kernels` JSON line, then the result line.
+9. Every share of bound printed (bound / time) must be <= 1.05: a
+   kernel faster than its bound means the bound is no floor. The shares,
+   the `kernels` JSON line, then the result line.
 
 Exits non-zero at the first failure, and when no CUDA device is present.
 TF32 is off for cuBLAS and cuDNN throughout, so every fp32 product is a
@@ -90,6 +103,9 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM, bf16 dense tensor cores
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 SLICE_SHAPE = (4, 32, 8, 2048, 2048, 128)     # llama3-8b prefill, batch 4
 LONG_SHAPE = (1, 32, 8, 8192, 8192, 128)
+ZAMBA_ATTN_SHAPE = (4, 32, 32, 2048, 2048, 112)   # its shared attention
+SHARE_MAX = 1.05     # a kernel faster than its bound means a wrong bound
+SHARES = {}          # what -> share of bound, every one printed
 SERVE = {"seeds": [0, 1], "batch": 4, "prompt_len": 2048,
          "gen_len": 16}                                    # a member a seed
 SERVES = [  # (arch, config overrides, the kernel package its prefill runs)
@@ -98,6 +114,7 @@ SERVES = [  # (arch, config overrides, the kernel package its prefill runs)
     ("zamba2-7b", {}, "ssd_scan")]
 SCAN_Y_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}   # of max |y|
 SCAN_STATE_TOL = 1e-3
+SSD_F64_TOL = 1e-6     # fp32 ssd_scan at the slice shape, of max |y|
 SSD_SLICE = (4, 2048, 112, 64, 64)     # zamba2-7b prefill, batch 4
 WKV_SLICE = (4, 2048, 40, 64)          # rwkv6-3b prefill, batch 4
 PAPER_SPEC = {
@@ -123,6 +140,15 @@ class SmokeFailure(RuntimeError):
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+def share(what: str, bound_ms: float, ms: float) -> float:
+    """Records and checks a kernel's share of its bound (bound / time):
+    above SHARE_MAX the bound is no floor and the run fails."""
+    SHARES[what] = bound_ms / ms
+    check(SHARES[what] <= SHARE_MAX, f"{what}: share of bound "
+          f"{SHARES[what]:.4f} above {SHARE_MAX}: the bound is no floor")
+    return SHARES[what]
 
 
 def nvidia_smi(query: str) -> str:
@@ -188,12 +214,14 @@ def time_ms(torch, fn, iters=200, warmup=20):
 
 
 def device_ms(torch, fn, iters=50, name="ensemble_fitness_kernel"):
-    """Device time from torch.profiler: (the kernel whose name holds
-    `name`, per recorded launch; every kernel of the calls, per call;
-    the number of launches of `name` recorded), times in ms, None where
-    the profiler saw no device time. The profiler may drop records of
-    long kernels on this machine, so the kernel's time is taken over the
-    launches it recorded, and their count is reported."""
+    """Device time from torch.profiler: (the kernels whose names hold
+    `name`, per call; every kernel of the calls, per call; the number of
+    their launches recorded), times in ms, None where the profiler saw no
+    device time. A call runs each kernel of `name` once (ssd_scan runs
+    four), so a call's time is the sum over those kernels of each one's
+    mean per recorded launch: the profiler may drop records of long
+    kernels on this machine, and this sum equals the total over the
+    calls divided by the calls when it drops none."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -206,9 +234,9 @@ def device_ms(torch, fn, iters=50, name="ensemble_fitness_kernel"):
               if e.device_type.name == "CUDA" and e.self_device_time_total]
     own = [e for e in events if name in e.key]
     n_own = sum(e.count for e in own)
-    own_us = sum(e.self_device_time_total for e in own)
+    own_us = sum(e.self_device_time_total / e.count for e in own)
     every_us = sum(e.self_device_time_total for e in events)
-    return (own_us / 1e3 / n_own if own_us else None,
+    return (own_us / 1e3 if own_us else None,
             every_us / 1e3 / iters if every_us else None, n_own)
 
 
@@ -257,6 +285,7 @@ def kernel_phase(torch):
             own_ms, call_ms, n_rec = device_ms(torch, run_kernel)
             (b_ms, b_by), (d_ms, d_by) = fitness_bound(pop)
             timings[(entry, N, P, M)] = (k_ms, p_ms, b_ms, b_by)
+            share(f"ensemble_fitness[{entry}] {(N, P, M)}", b_ms, k_ms)
             print(f"  time {entry} (N, P, M) = {(N, P, M)}: kernel "
                   f"{k_ms:.6f} ms ({k1:.6f}, {k2:.6f}), plain {p_ms:.6f} ms "
                   f"({p1:.6f}, {p2:.6f}) per call; on the device (profiler, "
@@ -420,20 +449,29 @@ def attention_bound(B, H, KV, Sq, Sk, hd, causal=True, window=0,
 
 def flash_phase(torch):
     """Every flash_attention case against its plain version on the card;
-    timings at the slice's and the long-context shape."""
+    timings at the slice's, zamba2-7b's shared-attention and the
+    long-context shape. At the slice's shape the kernel is timed on
+    contiguous (B, H, S, hd) inputs, as earlier versions were timed, and
+    through ops.py on the same data in the model layout (B, S, H, hd),
+    in turns with SDPA."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import kernel, ref
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     test_shapes = [(2, 4, 4, 256, 256, 64), (1, 8, 2, 128, 384, 64),
-                   (1, 4, 1, 64, 64, 32), (1, 2, 2, 1, 256, 64)]
+                   (1, 4, 1, 64, 64, 32), (1, 2, 2, 1, 256, 64),
+                   (2, 4, 2, 256, 256, 112)]
     cases = ([(s, d, 0, 0.0) for s in test_shapes
               for d in ("float32", "bfloat16")]
              + [((2, 4, 2, 256, 256, 64), "float32", w, c)
                 for w, c in ((64, 0.0), (0, 30.0), (32, 50.0))]
-             + [((2, 4, 2, 100, 100, 128), d, 0, 0.0)
-                for d in ("float32", "bfloat16")]
+             + [((2, 4, 2, 256, 256, hd), "bfloat16", w, c)
+                for hd in (64, 112, 128) for w, c in ((64, 0.0), (32, 50.0))]
+             + [((2, 4, 2, 100, 100, hd), d, 0, 0.0)
+                for hd in (112, 128) for d in ("float32", "bfloat16")]
              + [(SLICE_SHAPE, "bfloat16", 0, 0.0),
+                (ZAMBA_ATTN_SHAPE, "bfloat16", 0, 0.0),
+                (ZAMBA_ATTN_SHAPE, "bfloat16", 512, 30.0),
                 (LONG_SHAPE, "bfloat16", 0, 0.0)])
     timings = {}
     for shape, dtype, window, cap in cases:
@@ -462,9 +500,26 @@ def flash_phase(torch):
         check(ok and got.dtype == dt, f"flash_attention at {shape} {dtype} "
               f"window {window} softcap {cap} disagrees with its plain "
               f"version: max abs err {err}")
+        timed = window == 0 and shape in (SLICE_SHAPE, ZAMBA_ATTN_SHAPE,
+                                          LONG_SHAPE)
+        if shape == SLICE_SHAPE:   # the same data in the model layout
+            qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            before = kernel.KERNEL.launches
+            got_m = ops.flash_attention(qm, km, vm)
+            torch.cuda.synchronize()
+            same = bool(torch.equal(got_m, got.transpose(1, 2)))
+            print(f"  ops.flash_attention on the model layout (B, S, H, hd): "
+                  f"one launch {kernel.KERNEL.launches == before + 1}, "
+                  f"output contiguous {got_m.is_contiguous()}, equal to the "
+                  f"kernel's on (B, H, S, hd): {same}")
+            check(same and got_m.is_contiguous()
+                  and kernel.KERNEL.launches == before + 1,
+                  "ops.flash_attention on the model layout differs from "
+                  "the kernel on (B, H, S, hd) or copied its output")
+            del got_m
         del got, want
-        if shape in (SLICE_SHAPE, LONG_SHAPE):
-            iters = 50 if shape == SLICE_SHAPE else 5
+        if timed:
+            iters = 50 if shape == SLICE_SHAPE else 10
 
             def run_sdpa(q=q, k=k, v=v, hd=hd):
                 return F.scaled_dot_product_attention(
@@ -472,24 +527,38 @@ def flash_phase(torch):
                     enable_gqa=True)
             sdpa_err = float((run_sdpa().float()
                               - run_plain().float()).abs().max())
-            # in turns: plain, kernel, kernel, plain
-            p1, k1, k2, p2 = (time_ms(torch, fn, iters=iters, warmup=3)
-                              for fn in (run_plain, run_kernel, run_kernel,
-                                         run_plain))
-            lib_ms = time_ms(torch, run_sdpa, iters=iters, warmup=3)
+            tm = lambda fn, it=iters: time_ms(torch, fn, iters=it,  # noqa
+                                              warmup=3)
+            if shape == SLICE_SHAPE:
+                def run_model(qm=qm, km=km, vm=vm):
+                    return ops.flash_attention(qm, km, vm)
+                # in turns: plain, kernel, model layout, SDPA, and back
+                p1, k1, m1, l1 = (tm(run_plain, 3), tm(run_kernel),
+                                  tm(run_model), tm(run_sdpa))
+                l2, m2, k2, p2 = (tm(run_sdpa), tm(run_model),
+                                  tm(run_kernel), tm(run_plain, 3))
+                m_ms = (m1 + m2) / 2
+                model = (f", through ops.py on the model layout {m_ms:.6f} "
+                         f"ms ({m1:.6f}, {m2:.6f})")
+                del qm, km, vm
+            else:
+                p1, k1, l1 = tm(run_plain, 3), tm(run_kernel), tm(run_sdpa)
+                l2, k2, p2 = tm(run_sdpa), tm(run_kernel), tm(run_plain, 3)
+                m_ms, model = None, ""
             own_ms, _, n_rec = device_ms(torch, run_kernel, iters=iters,
                                          name="flash_fwd")
             b_ms, b_by, flops, nbytes = attention_bound(*shape)
-            k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            k_ms, p_ms, lib_ms = (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
             timings[shape] = dict(err=err, ms=k_ms, plain_ms=p_ms,
                                   bound_ms=b_ms, bound_by=b_by,
-                                  library_ms=lib_ms)
+                                  library_ms=lib_ms, model_ms=m_ms)
+            share(f"flash_attention {shape}", b_ms, k_ms)
             print(f"  time {shape}: kernel {k_ms:.6f} ms ({k1:.6f}, "
-                  f"{k2:.6f}), plain {p_ms:.6f} ms ({p1:.6f}, {p2:.6f}), "
-                  f"SDPA {lib_ms:.6f} ms (max abs diff to plain "
-                  f"{sdpa_err:.3e}) per call; kernel on the device "
-                  f"(profiler, {n_rec} of {iters} launches recorded) "
-                  f"{own_ms} ms; bound {b_ms:.6f} ms ({b_by}: "
+                  f"{k2:.6f}){model}, plain {p_ms:.6f} ms ({p1:.6f}, "
+                  f"{p2:.6f}), SDPA {lib_ms:.6f} ms ({l1:.6f}, {l2:.6f}; max "
+                  f"abs diff to plain {sdpa_err:.3e}) per call; kernel on "
+                  f"the device (profiler, {n_rec} of {iters} launches "
+                  f"recorded) {own_ms} ms; bound {b_ms:.6f} ms ({b_by}: "
                   f"{flops} FLOP, {nbytes} bytes), share of bound "
                   f"{b_ms / k_ms:.4f}, {flops / k_ms / 1e9:.1f} TFLOP/s")
         del q, k, v
@@ -562,53 +631,76 @@ def _chunk_sizes(S):
 def ssd_cost(Bb, S, nh, hd, ds, elem_bytes):
     """The ssd_scan call's bytes (x, B, C and y in the activation type,
     dt, A_log, D and h_T in fp32, each moved once) and the least
-    multiply-add work that computes it, as (fp32 FLOP, tensor-core FLOP).
-    The work is the chunked form's at the chunk size that needs least
-    time (the recurrence, 5 hd ds a (token, head), is chunk 1): per chunk
-    and (batch, head) the causal half of scores @ x, C h_prev, the state
-    update and its decay, in fp32; per chunk and batch, shared by the
-    heads, the causal half of C B^T, exact on the bf16 tensor cores when B
-    and C are bf16. The O(hd) terms of a step (exps, decay and dt
-    factors, D x) are left out, so the count stays a floor."""
+    multiply-add work that computes it, as (fp32-factor FLOP, FLOP whose
+    operands are both exact bf16). The work is the chunked form's at the
+    chunk size that needs least time (the recurrence, 5 hd ds a (token,
+    head), is chunk 1): per chunk and (batch, head) the causal half of
+    scores @ x, C h_prev, the state update and its decay, with one fp32
+    factor each; per chunk and batch, shared by the heads, the causal half
+    of C B^T, exact on the bf16 tensor cores when B and C are bf16. The
+    O(hd) terms of a step (exps, decay and dt factors, D x) are left out,
+    so the count stays a floor. `fp32_rate` prices the fp32-factor work:
+    False (the count the table uses) on the bf16 tensor cores at TERMS
+    bf16 terms a product, the split that keeps fp32 accuracy against an
+    exact bf16 operand; True (the older count, printed beside it) on the
+    fp32 FMA units, one term."""
     nbytes = (elem_bytes * (2 * Bb * S * nh * hd + 2 * Bb * S * ds)
               + 4 * (Bb * S * nh + 2 * nh + Bb * nh * hd * ds))
-    tc_rate = PEAK_BF16_FLOPS if elem_bytes == 2 else PEAK_FP32_FLOPS
-    best = None
-    for Q in _chunk_sizes(S):
-        fp32 = Bb * nh * (S // Q) * (Q * (Q + 1) * hd + 4 * Q * hd * ds
-                                     + hd * ds)
-        cb = Bb * (S // Q) * Q * (Q + 1) * ds
-        if elem_bytes != 2:
-            fp32, cb = fp32 + cb, 0
-        t = fp32 / PEAK_FP32_FLOPS + cb / tc_rate
-        if best is None or t < best[0]:
-            best = (t, fp32, cb)
-    return nbytes, best[1], best[2]
+    out = {}
+    for fp32_rate in (False, True):
+        best = None
+        for Q in _chunk_sizes(S):
+            fp32 = Bb * nh * (S // Q) * (Q * (Q + 1) * hd + 4 * Q * hd * ds
+                                         + hd * ds)
+            cb = Bb * (S // Q) * Q * (Q + 1) * ds
+            if elem_bytes != 2:
+                fp32, cb = fp32 + cb, 0
+            t = _ops_time(fp32, cb, fp32_rate, elem_bytes)
+            if best is None or t < best[0]:
+                best = (t, fp32, cb)
+        out[fp32_rate] = (nbytes, best[1], best[2])
+    return out
+
+
+TERMS = 3       # bf16 terms of an fp32 factor against an exact bf16 operand
+TERMS_F32 = 6   # products of 3-term splits of two fp32 factors, i + j <= 2
+
+
+def _ops_time(fp32, tc, fp32_rate, elem_bytes, terms=TERMS):
+    """Seconds of `fp32` fp32-factor FLOP and `tc` exact bf16 FLOP: on the
+    fp32 FMA units (fp32_rate, or fp32 activations) or on the bf16 tensor
+    cores at `terms` products a multiply-add."""
+    if fp32_rate or elem_bytes != 2:
+        return fp32 / PEAK_FP32_FLOPS + tc / PEAK_BF16_FLOPS
+    return (terms * fp32 + tc) / PEAK_BF16_FLOPS
 
 
 def wkv_cost(B, S, nh, hd, elem_bytes, with_s0):
     """The wkv_scan call's bytes (r, k, v and y in the activation type,
     logw, u, s0 if given and s_T in fp32) and the least multiply-add work
-    that computes it, all fp32 (r and k are scaled by fp32 decays before
-    any product): the chunked form's at the chunk size that needs least
-    (the recurrence, 5 hd^2 a (token, head), is chunk 1), per chunk and
-    (batch, head) the strictly lower A and A v, r_dec s_prev, the state
-    update and its decay. The O(hd) terms of a step (exps, decays, the
-    bonus u) are left out, so the count stays a floor."""
+    that computes it, all with fp32 factors on both sides (r and k are
+    scaled by fp32 decays before any product): the chunked form's at the
+    chunk size that needs least (the recurrence, 5 hd^2 a (token, head),
+    is chunk 1), per chunk and (batch, head) the strictly lower A and A
+    v, r_dec s_prev, the state update and its decay. The O(hd) terms of a
+    step (exps, decays, the bonus u) are left out, so the count stays a
+    floor. Priced as ssd_cost prices it, with TERMS_F32 products a
+    multiply-add on the tensor cores."""
     nbytes = (elem_bytes * 4 * B * S * nh * hd
               + 4 * (B * S * nh * hd + nh * hd
                      + (2 if with_s0 else 1) * B * nh * hd * hd))
     flops = min(B * nh * (S // Q) * (2 * Q * (Q - 1) * hd + 4 * Q * hd * hd
                                      + hd * hd) for Q in _chunk_sizes(S))
-    return nbytes, flops, 0
+    return {rate: (nbytes, flops, 0) for rate in (False, True)}
 
 
-def roofline(nbytes, fp32_flops, tc_flops):
+def roofline(nbytes, fp32_flops, tc_flops, fp32_rate, elem_bytes,
+             terms=TERMS):
     """(ms, bound_by): the larger of the bytes over the memory rate and
-    the operations over the peak of the unit that does them (fp32 FMA;
-    bf16 tensor cores for tc_flops)."""
+    the operations over the rate of the unit that does them (see
+    _ops_time)."""
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = fp32_flops / PEAK_FP32_FLOPS + tc_flops / PEAK_BF16_FLOPS
+    t_ops = _ops_time(fp32_flops, tc_flops, fp32_rate, elem_bytes, terms)
     return 1e3 * max(t_bytes, t_ops), \
         "operations" if t_ops >= t_bytes else "bytes"
 
@@ -624,6 +716,20 @@ def ssd_case(torch, gen, Bb, S, nh, hd, ds, dtype, split=False):
             else (n(Bb, S, ds).to(dt), n(Bb, S, ds).to(dt)))
     return (n(Bb, S, nh, hd).to(dt), F.softplus(n(Bb, S, nh)), 0.5 * n(nh),
             B, C, torch.ones(nh, device="cuda"))
+
+
+def ssd_float64(x, dt, A_log, B, C, D):
+    """The ssd recurrence in float64 on the card: y (float64)."""
+    import torch
+    x, dt, B, C = x.double(), dt.double(), B.double(), C.double()
+    A = -A_log.double().exp()
+    h = x.new_zeros(x.shape[0], x.shape[2], x.shape[3], B.shape[-1])
+    ys = []
+    for t in range(x.shape[1]):
+        h = h * (dt[:, t] * A).exp()[:, :, None, None] \
+            + (dt[:, t, :, None] * x[:, t])[..., None] * B[:, t, None, None]
+        ys.append((h * C[:, t, None, None]).sum(-1))
+    return torch.stack(ys, 1) + x * D.double()[None, None, :, None]
 
 
 def wkv_case(torch, gen, B, S, nh, hd, dtype, s0=False, logw=None):
@@ -678,7 +784,7 @@ def scan_phase(torch):
 
             def run_chunked(inp=inp):
                 return ssd_chunk_scan(*inp)
-            lib, kname = sk.KERNEL, "ssd_scan_kernel"
+            lib, kname = sk.KERNEL, "ssd_scan"
         else:
             def run_kernel(inp=inp, chunk=chunk):
                 return wo.wkv_scan(*inp[:5], s0=inp[5], chunk=chunk)
@@ -709,6 +815,18 @@ def scan_phase(torch):
               f"state max abs err {s_err:.3e}")
         check(ok, f"{name} at {shape} {dtype} disagrees with its plain "
                   f"version: y {y_rel} of max |y|, state {s_err}")
+        if name == "ssd_scan" and shape[:-1] == SSD_SLICE:
+            y64 = ssd_float64(*inp)
+            f64 = float((y.double() - y64).abs().max() / y64.abs().max())
+            p64 = float((y0.double() - y64).abs().max() / y64.abs().max())
+            print(f"  {name} {shape[:-1]} {dtype} against a float64 "
+                  f"recurrence: y {f64:.3e} of max |y| (the plain version "
+                  f"{p64:.3e}{'' if dtype == 'float32' else '; bf16 y'})")
+            if dtype == "float32":
+                check(f64 <= SSD_F64_TOL, f"ssd_scan fp32 at the slice "
+                      f"shape is {f64} of max |y| from float64, above "
+                      f"{SSD_F64_TOL}")
+            del y64
         del y, st, y0, st0
         if dtype == "bfloat16" and shape[:-1] in (SSD_SLICE, WKV_SLICE):
             # in turns: plain, kernel, kernel, plain
@@ -721,22 +839,28 @@ def scan_phase(torch):
             own_ms, _, n_rec = device_ms(torch, run_kernel, iters=10,
                                          name=kname)
             if name == "ssd_scan":
-                nbytes, flops, tc_flops = ssd_cost(*shape[:5], 2)
+                counts, terms = ssd_cost(*shape[:5], 2), TERMS
             else:
-                nbytes, flops, tc_flops = wkv_cost(*shape[:4], 2,
-                                                   inp[5] is not None)
-            b_ms, b_by = roofline(nbytes, flops, tc_flops)
+                counts = wkv_cost(*shape[:4], 2, inp[5] is not None)
+                terms = TERMS_F32
+            nbytes, flops, tc_flops = counts[False]
+            b_ms, b_by = roofline(*counts[False], False, 2, terms)
+            o_ms, o_by = roofline(*counts[True], True, 2)
             k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            share(f"{name} {shape[:-1]}", b_ms, k_ms)
             out[name] = dict(err=y_err, ms=k_ms, plain_ms=p_ms,
                              chunked_ms=c_ms, bound_ms=b_ms, bound_by=b_by,
                              device_ms=own_ms)
             print(f"  time {name} {shape[:-1]} bf16: kernel {k_ms:.6f} ms "
                   f"({k1:.6f}, {k2:.6f}), plain {p_ms:.6f} ms ({p1:.6f}, "
                   f"{p2:.6f}), chunked PyTorch copy {c_ms:.6f} ms per call;"
-                  f" kernel on the device (profiler, {n_rec} of 10 launches "
-                  f"recorded) {own_ms} ms; bound "
-                  f"{b_ms:.6f} ms ({b_by}: {flops} fp32 and {tc_flops} "
-                  f"bf16 tensor-core FLOP, {nbytes} bytes), "
+                  f" kernels on the device (profiler, {n_rec} launches of "
+                  f"them recorded over 10 calls) {own_ms} ms a call; bound "
+                  f"{b_ms:.6f} ms ({b_by}: {flops} fp32-factor FLOP at "
+                  f"{terms} bf16 products each and {tc_flops} exact bf16 "
+                  f"FLOP on the tensor cores, {nbytes} bytes; the "
+                  f"count with the fp32 factors on the FMA units "
+                  f"{o_ms:.6f} ms, {o_by}: {counts[True][1]} fp32 FLOP), "
                   f"share of bound {b_ms / k_ms:.4f}, "
                   f"{(flops + tc_flops) / k_ms / 1e9:.2f} TFLOP/s of the "
                   "least work; no single PyTorch call "
@@ -934,6 +1058,8 @@ def main() -> int:
               for arch, overrides, kname in SERVES}
 
     k_ms, p_ms, b_ms, b_by = timings[("batched", 32, 200, 100)]
+    print(f"shares of bound (every one <= {SHARE_MAX}):",
+          json.dumps({k: round(v, 6) for k, v in SHARES.items()}))
     print(json.dumps({"kernels": [{
         "name": "ensemble_fitness", "route": "cuda",
         "source": "src/repro_torch/csrc/ensemble_fitness.cu",

@@ -8,57 +8,71 @@
 //   y (Bb, S, nh, hd) of x's dtype and the final state h_T (Bb, nh, hd,
 //   ds) fp32, from h_0 = 0:
 //     h_t = exp(A dt_t) h_{t-1} + dt_t x_t B_t^T,  y_t = h_t C_t + D x_t,
-//   A = -exp(A_log). S is a multiple of the chunk Q (the wrapper in
+//   A = -exp(A_log). S is a multiple of the chunk Q <= 128 (the wrapper in
 //   ops.py pads with dt = 0 steps, which leave h_T exact).
 //
-// Per chunk of Q steps, with cum = cumsum(dt A) over the chunk (every
+// Per chunk c of Q steps, with cum = cumsum(dt A) over the chunk (every
 // step's log decay is <= 0, so cum decreases and each exponent below is
-// <= 0):
+// <= 0), the SSD decomposition of Mamba2:
 //   scores[i, j] = (C_i . B_j) exp(cum_i - cum_j) dt_j      for j <= i
-//   y = scores @ x + exp(cum_i) (C_i . h_prev) + D x
-//   h = exp(cum_Q) h_prev + sum_j exp(cum_Q - cum_j) dt_j x_j B_j^T
-// as the TPU kernel computes it, in fp32 (plain FMA; bf16 is converted
-// on load, y rounded to its dtype on store), except cum, which is summed
-// and differenced in double: in fp32 the difference of two cums near
-// -100 keeps only about 1e-5 of its exp, which put y 1.4e-5 of max |y|
-// from a float64 recurrence at zamba2's width on an H100; in double it
-// is 3.7e-7.
+//   s_c   = sum_j exp(cum_Q - cum_j) dt_j x_j B_j^T            (chunk state)
+//   h_c   = exp(cum_Q) h_{c-1} + s_c                         (state passing)
+//   y     = scores @ x + exp(cum_i) (C_i . h_{c-1}) + D x     (chunk output)
+// cum is summed and differenced in double: in fp32 the difference of two
+// cums near -100 keeps only about 1e-5 of its exp.
 //
 // What bounds it. The serving slice (zamba2-7b prefill, batch 4) calls
-// it at (Bb, S, nh, hd, ds) = (4, 2048, 112, 64, 64), x/B/C bf16: it
-// moves x and y (117 MB each), B and C (1 MB each), dt (3.7 MB) and h_T
-// (7.3 MB), about 0.074 ms at 3.35 TB/s. The least arithmetic that
-// computes it is the chunked form at chunk 8: C h_prev and the state
-// update (4 hd ds a step) and the causal scores @ x in fp32, about 1.60e10
-// FLOP, with C B^T once a batch (shared by the heads) on the bf16 tensor
-// cores, where bf16 products are exact: about 0.239 ms at the H100's 67
-// TFLOP/s fp32 rate. It is bound by operations (chip_smoke.py computes
-// this bound). At Q = 128 this kernel does about 2.8 times that work
-// (49k FLOP a (token, head) against 17.5k): the whole Q x Q tile of C B^T
-// for every head, and the whole tile of scores @ x.
+// it at (Bb, S, nh, hd, ds) = (4, 2048, 112, 64, 64), x/B/C bf16: x and y
+// (117 MB each), B and C (1 MB each), dt (3.7 MB) and h_T (7.3 MB) moved
+// once take 0.074 ms at 3.35 TB/s. The least arithmetic is the chunked
+// form at chunk 8, 1.60e10 multiply-add FLOP with fp32 factors; on the
+// bf16 tensor cores, with each fp32 factor split into 3 bf16 terms
+// against the exact bf16 operand, 4.8e10 FLOP, 0.049 ms at 989 TFLOP/s.
+// So the function is bound by bytes (chip_smoke.py computes this bound).
 //
-// What the design does about that. The TPU kernel's sequential chunk
-// grid axis with h in VMEM scratch becomes a loop over chunks inside one
-// block per (batch, head): blocks run in no order, so nothing crosses
-// blocks. The block reads the model layout (Bb, S, nh, hd) in place (row
-// stride nh hd), and B and C at batch bh / nh with the caller's strides,
-// never repeated across heads. A chunk's x, B, C, the Q x Q score tile
-// and h (about 185 KB at Q = 128, hd = ds = 64) stay in shared memory,
-// opted in above 48 KB once; rows of B, C, h and the score tile are
-// padded by one word against bank conflicts. Each of the three products
-// gives every thread of 256 a register micro-tile (8 x 8, 8 x 4, 4 x 4)
-// fed by broadcast or conflict-free shared loads. This first version
-// computes the whole Q x Q score tile and masks it (twice the causal
-// work) and keeps one block of 256 threads on an SM: the tensor cores
-// (TF32 or bf16 mma) and more blocks in flight are left to a later change.
+// What the design does about that. Four kernels a call, every one named
+// ssd_scan_*, chunk-parallel where the TPU kernel walks its chunks in
+// sequence (448 blocks of the old design become 448 x S / Q):
+//  1. ssd_scan_cb, a block per (batch, chunk): C B^T once for all heads,
+//     the causal half only (16 x 16 tiles on or below the diagonal), on
+//     the bf16 tensor cores, into a (Bb, S / Q, 128, 128) fp32 buffer (4
+//     MB at the slice, read from L2 by every head's block). A first pass
+//     rather than each head's block: the product is shared by 112 heads.
+//  2. ssd_scan_state, a block per (batch, head, chunk): the chunk state
+//     s_c (hd x ds, K = Q steps) on the tensor cores, into a (Bb, nh, S /
+//     Q, hd, ds) fp32 buffer, and the chunk's decay exp(cum_Q).
+//  3. ssd_scan_pass, per (batch, head): the short sequential pass over
+//     the S / Q chunks, elementwise over hd x ds, which overwrites each
+//     s_c with the state entering its chunk, h_{c-1}, and writes h_T.
+//  4. ssd_scan_chunk, a block per (batch, head, chunk): the causal half of
+//     scores @ x and C h_{c-1}^T on the tensor cores, then y.
+// The chunk states cost Bb nh (S / Q) hd ds 4 bytes a pass: 117 MB at Q =
+// 128, written by 2, read and written by 3 and read by 4 (470 MB in all,
+// 0.140 ms at 3.35 TB/s, twice the function's own bytes): the price of
+// the chunk-parallel grid. Q = 128 keeps that price at half of Q = 64's
+// while the score tile stays within a block's registers; fusing 3 into 4
+// would put the sequential pass back in front of every chunk's output.
+// Kernels 2 and 4 are latency-bound, so their launch bounds ask for 4
+// and 3 blocks an SM (64 and 85 registers a thread): more warps in
+// flight gain more than the few registers spilled cost (measured on the
+// H100).
+// Products are mma.sync m16n8k16 (bf16 in, fp32 accumulate). x, B and C
+// are exact bf16 operands; every fp32 factor (the decayed scores, w x and
+// h_{c-1}) is split into 3 bf16 terms v = v0 + v1 + v2 (24 mantissa
+// bits), and the products of the terms are summed, so no score or
+// carried state is rounded to bf16. fp32 inputs split x, B and C into 3
+// terms too and keep the products of terms i, j with i + j <= 2. The
+// scratch buffers are allocated by the wrapper.
 #include <stdint.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 256;          // threads a block: a 16 x 16 grid
-constexpr int QMAX = 128, HDMAX = 64, DSMAX = 64;
+constexpr int NT = 256;                  // threads a block: 8 warps
+constexpr int QM = 128, HM = 64, DM = 64;  // chunk, hd and ds maxima
+constexpr int LD = 72;                   // bf16 row of 64 + 8 against
+                                         // ldmatrix bank conflicts
 
 struct Params {
   const void* x;
@@ -69,255 +83,551 @@ struct Params {
   const float* D;
   void* y;
   float* hT;
-  int Bb, S, nh, hd, ds, Q;
+  float* cb;       // (Bb, nc, QM, QM): C B^T, causal 16 x 16 tiles
+  float* states;   // (Bb, nh, nc, hd, ds): s_c, then h_{c-1}
+  float* decay;    // (Bb, nh, nc): exp(cum_Q)
+  int Bb, S, nh, hd, ds, Q, nc;
   long long bc_bstride, bc_tstride;   // B and C strides, elements
 };
 
-__host__ __device__ constexpr size_t smem_floats(int Q, int hd, int ds) {
-  return 2 * (size_t)Q               // cum, in double
-      + (size_t)Q * hd               // x
-      + 2 * (size_t)Q * (ds + 1)     // B, C
-      + (size_t)Q * (Q + 1)          // scores
-      + (size_t)hd * (ds + 1)        // h
-      + 3 * (size_t)Q;               // dt, exp(cum), w
+// Terms of an operand: an exact bf16 input is one term, an fp32 one three.
+template <typename T>
+__host__ __device__ constexpr int terms() { return sizeof(T) == 2 ? 1 : 3; }
+
+// lo and hi split into K bf16 terms each, packed low, high: term k holds
+// what terms 0..k-1 left over, rounded to nearest (each residual is exact
+// in fp32), so the K terms sum to the value within 2^-(8 K) relative.
+template <int K>
+__device__ __forceinline__ void split_pack(float lo, float hi,
+                                           uint32_t (&r)[3]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    r[k] = *reinterpret_cast<const uint32_t*>(&v);
+    lo -= __low2float(v);
+    hi -= __high2float(v);
+  }
 }
 
+// 16 bytes of bf16 or fp32 as floats.
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&r);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[2 * k] = __low2float(b[k]);
+    f[2 * k + 1] = __high2float(b[k]);
+  }
+}
+__device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
+  f[0] = __uint_as_float(r.x);
+  f[1] = __uint_as_float(r.y);
+  f[2] = __uint_as_float(r.z);
+  f[3] = __uint_as_float(r.w);
+}
+
+// A ROWS x 64 tile, rows [0, n) x cols [0, m) of `src` (element (i, j) at
+// i * rs + j) and zeros elsewhere, as floats: thread `tid` holds the V =
+// 16 / sizeof(T) elements from (tid + k NT) V on in v[k], and issues all
+// its 16-byte loads before it uses any (a ragged or unaligned run is
+// loaded element by element).
+template <int ROWS, typename T>
+struct Tile {
+  static constexpr int V = 16 / sizeof(T), PER = ROWS * 64 / V / NT;
+  float v[PER][V];
+  __device__ __forceinline__ Tile(const T* __restrict__ src, size_t rs,
+                                  int n, int m) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int idx = (threadIdx.x + k * NT) * V, i = idx / 64, j = idx % 64;
+      const T* ptr = src + (size_t)i * rs + j;
+      if (i < n && j + V <= m && (reinterpret_cast<uintptr_t>(ptr) & 15) == 0) {
+        unpack(__ldg(reinterpret_cast<const uint4*>(ptr)), v[k]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+          v[k][e] = (i < n && j + e < m) ? load(ptr, e) : 0.0f;
+      }
+    }
+  }
+  __device__ __forceinline__ static int row(int k) {
+    return (threadIdx.x + k * NT) * V / 64;
+  }
+  __device__ __forceinline__ static int col(int k) {
+    return (threadIdx.x + k * NT) * V % 64;
+  }
+  // The tile as K-term bf16 tiles dst[t][i * LD + j]; consumes v.
+  template <int K>
+  __device__ __forceinline__ void store_terms(__nv_bfloat16* dst) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      __nv_bfloat16* d = dst + row(k) * LD + col(k);
+#pragma unroll
+      for (int t = 0; t < K; ++t) {
+        uint32_t w[V / 2];
+#pragma unroll
+        for (int e = 0; e < V / 2; ++e) {
+          const __nv_bfloat162 b = __floats2bfloat162_rn(v[k][2 * e],
+                                                         v[k][2 * e + 1]);
+          w[e] = *reinterpret_cast<const uint32_t*>(&b);
+          v[k][2 * e] -= __low2float(b);
+          v[k][2 * e + 1] -= __high2float(b);
+        }
+        if constexpr (V == 8)
+          *reinterpret_cast<uint4*>(d + t * ROWS * LD) =
+              make_uint4(w[0], w[1], w[2], w[3]);
+        else
+          *reinterpret_cast<uint2*>(d + t * ROWS * LD) =
+              make_uint2(w[0], w[1]);
+      }
+    }
+  }
+};
+
+// cum[i] = sum_{t <= i} dt_t A over the chunk's QM (zero-padded) steps,
+// in double, by warp 0: lane l owns steps [4 l, 4 l + 4).
+__device__ void chunk_cumsum(double* cum, const float* dts, float A) {
+  const int tid = threadIdx.x;
+  if (tid >= 32) return;
+  double v[4], run = 0.0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    run += (double)dts[tid * 4 + e] * A;
+    v[e] = run;
+  }
+  double tot = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double n = __shfl_up_sync(0xffffffffu, tot, off);
+    if (tid >= off) tot += n;
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) cum[tid * 4 + e] = tot - run + v[e];
+}
+
+__device__ void load_dt(float* dts, const Params& p, int b, int h, int t0) {
+  for (int i = threadIdx.x; i < QM; i += NT)
+    dts[i] = i < p.Q ? p.dt[((size_t)b * p.S + t0 + i) * p.nh + h] : 0.0f;
+}
+
+// ldmatrix lane addresses (element offsets in an LD-strided tile): the
+// A fragment of rows r0..r0+15, cols c0..c0+15; two n8 B fragments whose
+// n runs along rows n0..n0+15 and k along cols c0..c0+15 (B^T stored
+// row-major); two n8 B fragments whose k runs along rows k0..k0+15 and n
+// along cols n0..n0+15 (B stored row-major, read with .trans).
+__device__ __forceinline__ int a_lane(int r0, int c0, int lane) {
+  return (r0 + (lane >> 3 & 1) * 8 + (lane & 7)) * LD + c0 + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int bt_lane(int n0, int c0, int lane) {
+  return (n0 + (lane >> 4) * 8 + (lane & 7)) * LD + c0 + (lane >> 3 & 1) * 8;
+}
+__device__ __forceinline__ int b_lane(int k0, int n0, int lane) {
+  return (k0 + (lane >> 3 & 1) * 8 + (lane & 7)) * LD + n0 + (lane >> 4) * 8;
+}
+
+// The products of a k step are summed into a zeroed accumulator, smallest
+// terms first, which is then added to the running sum in fp32: the tensor
+// cores' rounding of a sum then applies to one k step's partial and not
+// to the running total.
+template <int R, int C>
+__device__ __forceinline__ void add_to(float (&acc)[R][C],
+                                       const float (&st)[R][C]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[r][c] += st[r][c];
+}
+
+// st (16 x 32) += the terms i <= imax of A (a[r][i], the 3-term fragments
+// of 16 x 16) times B (two x4 fragments of 16 x 16 each), smallest first.
+__device__ __forceinline__ void mma_terms(float (&st)[4][4],
+                                          const uint32_t (&a)[4][3],
+                                          const uint32_t (&bb)[2][4],
+                                          int imax) {
+#pragma unroll
+  for (int i = 2; i >= 0; --i) {
+    if (i > imax) continue;
+    const uint32_t ai[4] = {a[0][i], a[1][i], a[2][i], a[3][i]};
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      mma_bf16(st[n], ai, bb[n / 2][(n % 2) * 2], bb[n / 2][(n % 2) * 2 + 1]);
+  }
+}
+
+// exp(cum_i - cum_j) for j <= i (an exponent <= 0), with cum as the float
+// pair hi + lo: hi_i - hi_j + (lo_i - lo_j) keeps the difference to a few
+// ulps of itself, so exp is accurate to about 2e-8 absolute, without
+// double arithmetic for each score.
+__device__ __forceinline__ float decay(const float* hi, const float* lo,
+                                       int i, int j) {
+  return __expf((hi[i] - hi[j]) + (lo[i] - lo[j]));
+}
+
+// 1. C B^T of one (batch, chunk), 16 x 16 tiles on or below the diagonal.
 template <typename T>
-__global__ void __launch_bounds__(NT) ssd_scan_kernel(Params p) {
-  extern __shared__ __align__(16) double smd[];
-  const int Q = p.Q, hd = p.hd, ds = p.ds;
-  const int LDS = ds + 1, LDQ = Q + 1;
-  double* cum = smd;                    // Q: cumsum(dt A), in double
-  float* xs = reinterpret_cast<float*>(cum + Q);   // Q x hd
-  float* Bs = xs + Q * hd;              // Q x LDS
-  float* Cs = Bs + Q * LDS;             // Q x LDS
-  float* sc = Cs + Q * LDS;             // Q x LDQ
-  float* hs = sc + Q * LDQ;             // hd x LDS
-  float* dts = hs + hd * LDS;           // Q
-  float* ecum = dts + Q;                // Q: exp(cum_i)
-  float* wj = ecum + Q;                 // Q: exp(cum_Q - cum_j) dt_j
-
-  const int bh = blockIdx.x, b = bh / p.nh, h = bh % p.nh;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const float A = -expf(p.A_log[h]);
-  const float Dh = p.D[h];
-  const T* X = static_cast<const T*>(p.x);
-  const T* Bg = static_cast<const T*>(p.B);
-  const T* Cg = static_cast<const T*>(p.C);
-  T* Y = static_cast<T*>(p.y);
-  const size_t row = (size_t)p.nh * hd;   // token stride of x and y
-  const size_t xh = (size_t)b * p.S * row + (size_t)h * hd;
-  const size_t bc0 = (size_t)b * p.bc_bstride;
-
-  for (int i = tid; i < hd * LDS; i += NT) hs[i] = 0.0f;
-
-  // each thread's rows and columns of the three products, clamped so
-  // that a thread past the edge reads valid shared memory (its results
-  // are never stored)
-  int r8[8], c8[8], c4[4], r4[4];
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    r8[a] = min(ty + 16 * a, Q - 1);
-    c8[a] = min(tx + 16 * a, Q - 1);
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    c4[a] = min(tx + 16 * a, hd - 1);     // y columns (d)
-    r4[a] = min(ty + 16 * a, hd - 1);     // h rows (d)
-  }
-
-  for (int t0 = 0; t0 < p.S; t0 += Q) {
-    __syncthreads();   // the previous chunk's readers are done
-    for (int idx = tid; idx < Q * hd; idx += NT) {
-      const int i = idx / hd, d = idx % hd;
-      xs[idx] = load(X, xh + (size_t)(t0 + i) * row + d);
-    }
-    for (int idx = tid; idx < Q * ds; idx += NT) {
-      const int i = idx / ds, s = idx % ds;
-      const size_t off = bc0 + (size_t)(t0 + i) * p.bc_tstride + s;
-      Bs[i * LDS + s] = load(Bg, off);
-      Cs[i * LDS + s] = load(Cg, off);
-    }
-    for (int i = tid; i < Q; i += NT)
-      dts[i] = p.dt[((size_t)b * p.S + t0 + i) * p.nh + h];
-    __syncthreads();
-
-    // cum = inclusive scan of dt A, one warp: lane l owns steps [l E, l E
-    // + E), E <= 4. In double: the exponents below are differences of
-    // cums, and in fp32 a difference of two cums near -100 would lose
-    // about 1e-5 of its exp to cancellation.
-    if (tid < 32) {
-      const int E = (Q + 31) / 32;
-      double v[4], run = 0.0;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = tid * E + e;
-        run += (e < E && i < Q) ? (double)dts[i] * A : 0.0;
-        v[e] = run;
-      }
-      double tot = run;
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const double n = __shfl_up_sync(0xffffffffu, tot, off);
-        if (tid >= off) tot += n;
-      }
-      const double base = tot - run;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = tid * E + e;
-        if (e < E && i < Q) cum[i] = base + v[e];
-      }
-    }
-    __syncthreads();
-    const double cQ = cum[Q - 1];
-    for (int i = tid; i < Q; i += NT) {
-      ecum[i] = expf((float)cum[i]);
-      wj[i] = expf((float)(cQ - cum[i])) * dts[i];
-    }
-
-    {   // scores = (C B^T) * exp(cum_i - cum_j) * dt_j, j <= i
-      float acc[8][8];
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[a][c] = 0.0f;
-      for (int s = 0; s < ds; ++s) {
-        float cv[8], bv[8];
-#pragma unroll
-        for (int a = 0; a < 8; ++a) {
-          cv[a] = Cs[r8[a] * LDS + s];
-          bv[a] = Bs[c8[a] * LDS + s];
-        }
-#pragma unroll
-        for (int a = 0; a < 8; ++a)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[a][c] = fmaf(cv[a], bv[c], acc[a][c]);
-      }
-#pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        const int i = ty + 16 * a;
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int j = tx + 16 * c;
-          if (i < Q && j < Q)
-            sc[i * LDQ + j] = j <= i
-                ? acc[a][c] * expf((float)(cum[i] - cum[j])) * dts[j]
-                : 0.0f;
-        }
-      }
-    }
-    __syncthreads();
-
-    {   // y = scores @ x + exp(cum_i) (C_i . h_prev) + D x
-      float acc[8][4], inter[8][4];
-#pragma unroll
-      for (int a = 0; a < 8; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = inter[a][c] = 0.0f;
-      for (int j = 0; j < Q; ++j) {
-        float sv[8], xv[4];
-#pragma unroll
-        for (int a = 0; a < 8; ++a) sv[a] = sc[r8[a] * LDQ + j];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) xv[c] = xs[j * hd + c4[c]];
-#pragma unroll
-        for (int a = 0; a < 8; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(sv[a], xv[c], acc[a][c]);
-      }
-      for (int s = 0; s < ds; ++s) {
-        float cv[8], hv[4];
-#pragma unroll
-        for (int a = 0; a < 8; ++a) cv[a] = Cs[r8[a] * LDS + s];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) hv[c] = hs[c4[c] * LDS + s];
-#pragma unroll
-        for (int a = 0; a < 8; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            inter[a][c] = fmaf(cv[a], hv[c], inter[a][c]);
-      }
-#pragma unroll
-      for (int a = 0; a < 8; ++a) {
-        const int i = ty + 16 * a;
-        if (i >= Q) continue;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int d = tx + 16 * c;
-          if (d >= hd) continue;
-          float v = acc[a][c] + ecum[i] * inter[a][c];
-          v += xs[i * hd + d] * Dh;
-          store(Y, xh + (size_t)(t0 + i) * row + d, v);
-        }
-      }
-    }
-    __syncthreads();   // every reader of h_prev is done
-
-    {   // h = exp(cum_Q) h_prev + sum_j w_j x_j B_j^T
-      float acc[4][4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[a][c] = 0.0f;
-      int sc4[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sc4[c] = min(tx + 16 * c, ds - 1);
-      for (int j = 0; j < Q; ++j) {
-        const float w = wj[j];
-        float xv[4], bv[4];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) xv[a] = xs[j * hd + r4[a]] * w;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) bv[c] = Bs[j * LDS + sc4[c]];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[a][c] = fmaf(xv[a], bv[c], acc[a][c]);
-      }
-      const float dec = expf((float)cQ);
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int d = ty + 16 * a;
-        if (d >= hd) continue;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int s = tx + 16 * c;
-          if (s < ds) hs[d * LDS + s] = hs[d * LDS + s] * dec + acc[a][c];
-        }
-      }
-    }
+__global__ void __launch_bounds__(NT) ssd_scan_cb(Params p) {
+  constexpr int K = terms<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* Cs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* Bs = Cs + K * QM * LD;
+  const int c = blockIdx.x, b = blockIdx.y, t0 = c * p.Q;
+  const size_t bc0 = (size_t)b * p.bc_bstride + (size_t)t0 * p.bc_tstride;
+  {
+    Tile<QM, T> ct(static_cast<const T*>(p.C) + bc0, p.bc_tstride, p.Q, p.ds);
+    Tile<QM, T> bt(static_cast<const T*>(p.B) + bc0, p.bc_tstride, p.Q, p.ds);
+    ct.template store_terms<K>(Cs);
+    bt.template store_terms<K>(Bs);
   }
   __syncthreads();
-  float* H = p.hT + (size_t)bh * hd * ds;
-  for (int idx = tid; idx < hd * ds; idx += NT)
-    H[idx] = hs[(idx / ds) * LDS + idx % ds];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int nrb = (p.Q + 15) / 16, ksteps = (p.ds + 15) / 16;
+  float* out = p.cb + ((size_t)b * p.nc + c) * QM * QM;
+  for (int tile = warp; tile < nrb * (nrb + 1) / 2; tile += NT / 32) {
+    int rb = 0;
+    while ((rb + 1) * (rb + 2) / 2 <= tile) ++rb;
+    const int cb = tile - rb * (rb + 1) / 2;
+    float acc[2][4] = {};
+    for (int ks = 0; ks < ksteps; ++ks) {
+      float st[2][4] = {};
+      uint32_t a[K][4], bt[K][4];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        ldsm_x4(a[k], smem_u32(Cs + k * QM * LD
+                               + a_lane(rb * 16, ks * 16, lane)));
+        ldsm_x4(bt[k], smem_u32(Bs + k * QM * LD
+                                + bt_lane(cb * 16, ks * 16, lane)));
+      }
+#pragma unroll
+      for (int i = K - 1; i >= 0; --i)
+#pragma unroll
+        for (int j = K - 1 - i; j >= 0; --j) {
+          mma_bf16(st[0], a[i], bt[j][0], bt[j][1]);
+          mma_bf16(st[1], a[i], bt[j][2], bt[j][3]);
+        }
+      add_to(acc, st);
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; e += 2) {
+        const int i = rb * 16 + g + (e >> 1) * 8;
+        const int j = cb * 16 + n * 8 + 2 * t;
+        *reinterpret_cast<float2*>(out + i * QM + j) =
+            make_float2(acc[n][e], acc[n][e + 1]);
+      }
+  }
+}
+
+// 2. The chunk state s_c = sum_j w_j x_j B_j^T, w_j = exp(cum_Q - cum_j)
+// dt_j, of one (batch, head, chunk), and the chunk's decay exp(cum_Q).
+// Warp w computes hd rows 16 (w % 4).. and ds columns 32 (w / 4)..; the
+// A fragments of x^T come from the staged x through ldmatrix.trans and
+// are scaled by w and split into 3 terms in registers.
+template <typename T>
+__global__ void __launch_bounds__(NT, 4) ssd_scan_state(Params p) {
+  constexpr int K = terms<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* cum = reinterpret_cast<double*>(smem);
+  float* dts = reinterpret_cast<float*>(cum + QM);
+  float* w = dts + QM;
+  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(w + QM);
+  __nv_bfloat16* Xs = Bs + K * QM * LD;
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t0 = c * p.Q;
+  const int tid = threadIdx.x;
+  const float A = -expf(p.A_log[h]);
+  {
+    Tile<QM, T> bt(static_cast<const T*>(p.B) + (size_t)b * p.bc_bstride
+                   + (size_t)t0 * p.bc_tstride, p.bc_tstride, p.Q, p.ds);
+    Tile<QM, T> xt(static_cast<const T*>(p.x)
+                   + ((size_t)b * p.S + t0) * p.nh * p.hd + (size_t)h * p.hd,
+                   (size_t)p.nh * p.hd, p.Q, p.hd);
+    load_dt(dts, p, b, h, t0);
+    bt.template store_terms<K>(Bs);
+    xt.template store_terms<K>(Xs);
+  }
+  __syncthreads();
+  chunk_cumsum(cum, dts, A);
+  __syncthreads();
+  const double cQ = cum[QM - 1];
+  for (int j = tid; j < QM; j += NT) w[j] = expf((float)(cQ - cum[j])) * dts[j];
+  const size_t bhc = ((size_t)b * p.nh + h) * p.nc + c;
+  if (tid == 0) p.decay[bhc] = expf((float)cQ);
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int d0 = (warp % 4) * 16, s0 = (warp / 4) * 32;
+  if (d0 >= p.hd || s0 >= p.ds) return;
+  float acc[4][4] = {};
+  for (int ks = 0; ks < (p.Q + 15) / 16; ++ks) {
+    float st[4][4] = {};
+    // A (d, j) = w_j x_j[d]: rows d0 + g (+8), cols ks 16 + 2t (+8)
+    float xa[4][2] = {};
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      uint32_t r[4];
+      ldsm_x4_trans(r, smem_u32(Xs + k * QM * LD
+                                + bt_lane(ks * 16, d0, lane)));
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const __nv_bfloat162 v =
+            *reinterpret_cast<const __nv_bfloat162*>(&r[q]);
+        xa[q][0] += __low2float(v);
+        xa[q][1] += __high2float(v);
+      }
+    }
+    uint32_t a[4][3];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = ks * 16 + 2 * t + (q >> 1) * 8;
+      split_pack<3>(w[j] * xa[q][0], w[j + 1] * xa[q][1], a[q]);
+    }
+#pragma unroll
+    for (int j = K - 1; j >= 0; --j) {
+      uint32_t bb[2][4];
+#pragma unroll
+      for (int n2 = 0; n2 < 2; ++n2)
+        ldsm_x4_trans(bb[n2], smem_u32(Bs + j * QM * LD
+                                       + b_lane(ks * 16, s0 + 16 * n2, lane)));
+      mma_terms(st, a, bb, 2 - j);
+    }
+    add_to(acc, st);
+  }
+  float* out = p.states + bhc * p.hd * p.ds;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = d0 + g + (e >> 1) * 8, s = s0 + n * 8 + 2 * t + (e & 1);
+      if (d < p.hd && s < p.ds) out[d * p.ds + s] = acc[n][e];
+    }
+}
+
+// 3. h_c = exp(cum_Q,c) h_{c-1} + s_c over the chunks of one (batch,
+// head), 4 elements of hd x ds a thread with 8 chunks' loads in flight;
+// s_c is overwritten by h_{c-1}.
+__global__ void __launch_bounds__(NT) ssd_scan_pass(Params p) {
+  const int n = p.hd * p.ds, e0 = (blockIdx.x * NT + threadIdx.x) * 4;
+  if (e0 >= n) return;
+  const int m = min(4, n - e0);
+  const bool vec = n % 4 == 0;       // every run of 4 is 16-byte aligned
+  const size_t bh = blockIdx.y;
+  float* __restrict__ st = p.states + bh * p.nc * n + e0;
+  const float* __restrict__ dec = p.decay + bh * p.nc;
+  float h[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int c0 = 0; c0 < p.nc; c0 += 8) {
+    float s[8][4];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      float* src = st + (size_t)(c0 + k) * n;
+      if (c0 + k < p.nc && vec) {
+        const float4 v = *reinterpret_cast<const float4*>(src);
+        s[k][0] = v.x, s[k][1] = v.y, s[k][2] = v.z, s[k][3] = v.w;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[k][e] = c0 + k < p.nc && e < m ? src[e] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      if (c0 + k >= p.nc) break;
+      float* dst = st + (size_t)(c0 + k) * n;
+      const float a = __ldg(dec + c0 + k);
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) = make_float4(h[0], h[1], h[2], h[3]);
+      } else {
+        for (int e = 0; e < m; ++e) dst[e] = h[e];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) h[e] = h[e] * a + s[k][e];
+    }
+  }
+  for (int e = 0; e < m; ++e) p.hT[bh * n + e0 + e] = h[e];
+}
+
+// 4. y of one (batch, head, chunk): the causal half of scores @ x, plus
+// exp(cum_i) (C_i . h_{c-1}), plus D x. Warp w owns two units of 16 rows
+// x 32 columns of y, rows 16 w with columns 0..31 and rows 16 (7 - w)
+// with columns 32..63, so every warp does 9 of the 36 causal k steps.
+template <typename T>
+__global__ void __launch_bounds__(NT, 3) ssd_scan_chunk(Params p) {
+  constexpr int K = terms<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  double* cum = reinterpret_cast<double*>(smem);
+  float* dts = reinterpret_cast<float*>(cum + QM);
+  float* ecum = dts + QM;
+  float* chi = ecum + QM;   // cum as the float pair chi + clo
+  float* clo = chi + QM;
+  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(clo + QM);
+  __nv_bfloat16* Cs = Xs + K * QM * LD;
+  __nv_bfloat16* Hs = Cs + K * QM * LD;                 // 3 terms, HM x LD
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t0 = c * p.Q;
+  const int tid = threadIdx.x;
+  const float A = -expf(p.A_log[h]);
+  const size_t row = (size_t)p.nh * p.hd;               // token stride of x
+  const size_t xh = ((size_t)b * p.S + t0) * row + (size_t)h * p.hd;
+  const size_t bhc = ((size_t)b * p.nh + h) * p.nc + c;
+  const T* X = static_cast<const T*>(p.x);
+  {   // every load of the block in flight before any is used
+    Tile<QM, T> xt(X + xh, row, p.Q, p.hd);
+    Tile<QM, T> ct(static_cast<const T*>(p.C) + (size_t)b * p.bc_bstride
+                   + (size_t)t0 * p.bc_tstride, p.bc_tstride, p.Q, p.ds);
+    Tile<HM, float> ht(p.states + bhc * p.hd * p.ds, p.ds, p.hd, p.ds);
+    load_dt(dts, p, b, h, t0);
+    xt.template store_terms<K>(Xs);
+    ct.template store_terms<K>(Cs);
+    ht.template store_terms<3>(Hs);
+  }
+  __syncthreads();
+  chunk_cumsum(cum, dts, A);
+  __syncthreads();
+  for (int i = tid; i < QM; i += NT) {
+    ecum[i] = expf((float)cum[i]);
+    chi[i] = (float)cum[i];
+    clo[i] = (float)(cum[i] - (double)chi[i]);
+  }
+  __syncthreads();
+
+  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int nrb = (p.Q + 15) / 16, dsteps = (p.ds + 15) / 16;
+  const float* CB = p.cb + ((size_t)b * p.nc + c) * QM * QM;
+  const float Dh = p.D[h];
+  T* Y = static_cast<T*>(p.y);
+#pragma unroll 1
+  for (int u = 0; u < 2; ++u) {
+    const int rb = u == 0 ? warp : 7 - warp, n0 = u * 32;
+    if (rb >= nrb || n0 >= p.hd) continue;
+    float yi[4][4] = {}, ye[4][4] = {};
+    // scores @ x, k steps 0..rb: A = scores (3 terms), B = x (K terms)
+    // this thread's C B^T entries of k step ks, loaded one step ahead
+    auto fetch = [&](int ks, float2 (&v)[4]) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        v[r] = __ldg(reinterpret_cast<const float2*>(
+            CB + (rb * 16 + g + (r & 1) * 8) * QM + ks * 16 + 2 * t
+            + (r >> 1) * 8));
+    };
+    float2 cbv[4], nxt[4];
+    fetch(0, cbv);
+    for (int ks = 0; ks <= rb; ++ks) {
+      if (ks < rb) fetch(ks + 1, nxt);
+      float st[4][4] = {};
+      uint32_t a[4][3];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = rb * 16 + g + (r & 1) * 8;
+        const int j = ks * 16 + 2 * t + (r >> 1) * 8;
+        const float s0 = j <= i
+            ? cbv[r].x * decay(chi, clo, i, j) * dts[j] : 0.0f;
+        const float s1 = j + 1 <= i
+            ? cbv[r].y * decay(chi, clo, i, j + 1) * dts[j + 1] : 0.0f;
+        split_pack<3>(s0, s1, a[r]);
+      }
+#pragma unroll
+      for (int j = K - 1; j >= 0; --j) {
+        uint32_t bb[2][4];
+#pragma unroll
+        for (int n2 = 0; n2 < 2; ++n2)
+          ldsm_x4_trans(bb[n2], smem_u32(Xs + j * QM * LD
+                                         + b_lane(ks * 16, n0 + 16 * n2,
+                                                  lane)));
+        mma_terms(st, a, bb, 2 - j);
+      }
+      add_to(yi, st);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) cbv[r] = nxt[r];
+    }
+    // C h_{c-1}^T: A = C (K terms), B^T = h (3 terms, rows d, cols s)
+    for (int ks = 0; ks < dsteps; ++ks) {
+      float st[4][4] = {};
+      uint32_t a[K][4];
+#pragma unroll
+      for (int i = 0; i < K; ++i)
+        ldsm_x4(a[i], smem_u32(Cs + i * QM * LD
+                               + a_lane(rb * 16, ks * 16, lane)));
+#pragma unroll
+      for (int j = 2; j >= 0; --j) {
+        uint32_t bt[2][4];
+#pragma unroll
+        for (int n2 = 0; n2 < 2; ++n2)
+          ldsm_x4(bt[n2], smem_u32(Hs + j * HM * LD
+                                   + bt_lane(n0 + 16 * n2, ks * 16, lane)));
+#pragma unroll
+        for (int i = min(K - 1, 2 - j); i >= 0; --i)
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+            mma_bf16(st[n], a[i], bt[n / 2][(n % 2) * 2],
+                     bt[n / 2][(n % 2) * 2 + 1]);
+      }
+      add_to(ye, st);
+    }
+    // D x from the staged terms of x (x itself when x is bf16)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = rb * 16 + g + (e >> 1) * 8;
+        const int d = n0 + n * 8 + 2 * t + (e & 1);
+        if (i >= p.Q || d >= p.hd) continue;
+        float x = 0.0f;
+#pragma unroll
+        for (int k = K - 1; k >= 0; --k)
+          x += __bfloat162float(Xs[k * QM * LD + i * LD + d]);
+        store(Y, xh + (size_t)i * row + d,
+              yi[n][e] + ecum[i] * ye[n][e] + x * Dh);
+      }
+  }
+}
+
+constexpr size_t cb_smem(int K) { return 2 * (size_t)K * QM * LD * 2; }
+constexpr size_t state_smem(int K) {
+  return QM * 8 + 2 * QM * 4 + 2 * (size_t)K * QM * LD * 2;
+}
+constexpr size_t chunk_smem(int K) {
+  return QM * 8 + 4 * QM * 4 + 2 * (size_t)K * QM * LD * 2
+      + 3 * (size_t)HM * LD * 2;
 }
 
 template <typename T>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
-  return launch_opt_in<ssd_scan_kernel<T>>(
-      p.Bb * p.nh, NT, smem_floats(QMAX, HDMAX, DSMAX) * 4,
-      smem_floats(p.Q, p.hd, p.ds) * 4, p, stream);
+  constexpr int K = terms<T>();
+  cudaError_t e = launch_opt_in<ssd_scan_cb<T>>(
+      dim3(p.nc, p.Bb), NT, cb_smem(K), cb_smem(K), p, stream);
+  if (e != cudaSuccess) return e;
+  e = launch_opt_in<ssd_scan_state<T>>(
+      dim3(p.nc, p.nh, p.Bb), NT, state_smem(K), state_smem(K), p, stream);
+  if (e != cudaSuccess) return e;
+  ssd_scan_pass<<<dim3((p.hd * p.ds + 4 * NT - 1) / (4 * NT), p.Bb * p.nh),
+                  NT, 0, stream>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  return launch_opt_in<ssd_scan_chunk<T>>(
+      dim3(p.nc, p.nh, p.Bb), NT, chunk_smem(K), chunk_smem(K), p, stream);
 }
 
 }  // namespace
 
-// dtype (of x, B, C and y): 0 = float32, 1 = bfloat16. Returns the CUDA
-// error of the launch (0 on success); the wrapper raises on anything
+// dtype (of x, B, C and y): 0 = float32, 1 = bfloat16. cb, states and
+// decay are the wrapper's fp32 scratch of (Bb, S / Q, 128, 128), (Bb, nh,
+// S / Q, hd, ds) and (Bb, nh, S / Q) floats. Returns the first CUDA error
+// of the four launches (0 on success); the wrapper raises on anything
 // else. The wrapper has checked Q <= 128, hd <= 64, ds <= 64, S % Q == 0.
 extern "C" int ssd_scan_launch(const void* x, const void* dt,
                                const void* A_log, const void* B,
                                const void* C, const void* D, void* y,
-                               void* hT, int dtype, int Bb, int S, int nh,
-                               int hd, int ds, int Q, long long bc_bstride,
+                               void* hT, void* cb, void* states, void* decay,
+                               int dtype, int Bb, int S, int nh, int hd,
+                               int ds, int Q, long long bc_bstride,
                                long long bc_tstride, void* stream) {
-  if (Q < 1 || Q > QMAX || hd < 1 || hd > HDMAX || ds < 1 || ds > DSMAX ||
+  if (Q < 1 || Q > QM || hd < 1 || hd > HM || ds < 1 || ds > DM ||
       S % Q != 0)
     return (int)cudaErrorInvalidValue;
   Params p{x, static_cast<const float*>(dt),
            static_cast<const float*>(A_log), B, C,
            static_cast<const float*>(D), y, static_cast<float*>(hT),
-           Bb, S, nh, hd, ds, Q, bc_bstride, bc_tstride};
+           static_cast<float*>(cb), static_cast<float*>(states),
+           static_cast<float*>(decay), Bb, S, nh, hd, ds, Q, S / Q,
+           bc_bstride, bc_tstride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(p, s);
   if (dtype == 1) return (int)launch<__nv_bfloat16>(p, s);

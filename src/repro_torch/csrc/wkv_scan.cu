@@ -41,10 +41,13 @@
 // arithmetic that computes it is the chunked form at chunk 4: r_dec
 // s_prev and the state update (4 hd^2 a step), the strictly lower A and
 // A v, all fp32 (r and k meet the decays before any product), about
-// 5.83e9 FLOP, about 0.087 ms at the H100's 67 TFLOP/s fp32 rate: it is
-// bound by operations, narrowly (chip_smoke.py computes this bound). At
-// Q = 64 this kernel's form needs about 24.5k FLOP a (token, head)
-// against the least 17.8k.
+// 5.83e9 FLOP: 0.087 ms at the H100's 67 TFLOP/s fp32 rate, or 0.035 ms
+// on the 989 TFLOP/s bf16 tensor cores with both fp32 factors split
+// into 3 bf16 terms (6 products a multiply-add keep fp32 accuracy). The
+// bound chip_smoke.py uses is the latter, so the call is bound by bytes,
+// 0.077 ms (it prints the fp32-rate count beside it). At Q = 64 this
+// kernel's form needs about 24.5k FLOP a (token, head) against the
+// least 17.8k.
 //
 // What the design does about that. The TPU kernel's sequential chunk
 // grid axis with s in VMEM scratch becomes a loop over chunks inside one

@@ -15,10 +15,11 @@ from repro_torch.kernels._build import (CudaLibrary, check_cuda,
                                         check_dtypes, check_fp32)
 
 KERNEL = CudaLibrary("ssd_scan.cu", "ssd_scan", {
-    "ssd_scan_launch": ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    "ssd_scan_launch": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                         + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
                         ctypes.c_int)})
 CHUNK = 128          # the TPU kernel's chunk; also the largest supported
+                     # and the edge of the kernel's C B^T tiles
 MAX_HD = MAX_DS = 64
 
 
@@ -58,17 +59,26 @@ def ssd_scan(x, dt, A_log, B, C, D, *, chunk=CHUNK):
     """x: (Bb, S, nh, hd) contiguous; dt: (Bb, S, nh) fp32; B, C: (Bb, S,
     ds), unit channel stride (views of one tensor are fine); A_log, D:
     (nh,) fp32; S a multiple of min(chunk, S). Returns (y (Bb, S, nh, hd)
-    of x's dtype, h_final (Bb, nh, hd, ds) fp32)."""
+    of x's dtype, h_final (Bb, nh, hd, ds) fp32). One launch (one count)
+    runs the source's four kernels on the fp32 scratch allocated here:
+    C B^T tiles, the chunk states (Bb nh S / Q hd ds floats) and the
+    chunks' decays."""
     Q, code = _check(x, dt, A_log, B, C, D, chunk)
     Bb, S, nh, hd = x.shape
     ds = B.shape[-1]
     y = torch.empty_like(x)
     hT = torch.empty((Bb, nh, hd, ds), dtype=torch.float32, device=x.device)
+    nc = S // Q
+    f32 = dict(dtype=torch.float32, device=x.device)
+    cb = torch.empty((Bb, nc, CHUNK, CHUNK), **f32)
+    states = torch.empty((Bb, nh, nc, hd, ds), **f32)
+    decay = torch.empty((Bb, nh, nc), **f32)
     if Bb * nh:
         KERNEL.launch(
             "ssd_scan_launch", x.device, x.data_ptr(), dt.data_ptr(),
             A_log.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
-            y.data_ptr(), hT.data_ptr(), code, Bb, S, nh, hd, ds, Q,
+            y.data_ptr(), hT.data_ptr(), cb.data_ptr(), states.data_ptr(),
+            decay.data_ptr(), code, Bb, S, nh, hd, ds, Q,
             B.stride(0), B.stride(1),
             at=f"(Bb, S, nh, hd, ds, Q) = {(Bb, S, nh, hd, ds, Q)}, "
                f"{x.dtype}")

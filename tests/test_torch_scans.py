@@ -196,6 +196,107 @@ def test_chunked_wkv_overflows_where_the_recurrence_does_not(jx):
     assert bool(torch.isfinite(y_plain).all())
 
 
+def _split(v, n):
+    """v (float32) as n bf16-valued float32 terms, each the rounding of
+    what the earlier ones left: the kernel's operand split."""
+    out = []
+    for _ in range(n):
+        t = v.to(torch.bfloat16).float()
+        out.append(t)
+        v = v - t
+    return out
+
+
+def _mm_terms(a, b, na, nb, k_axis_a=-1):
+    """sum_k a[..., k] b[k, ...] over k steps of 16 as the kernel sums it:
+    each step's products of the terms i, j with i + j <= 2 (a in na, b in
+    nb terms), smallest first, into a zeroed float32 partial, then the
+    partial added to the running float32 sum. a: (..., M, K), b: (..., K,
+    N)."""
+    at, bt = _split(a, na), _split(b, nb)
+    acc = None
+    for k0 in range(0, a.shape[-1], 16):
+        part = torch.zeros(a.shape[:-1] + b.shape[-1:])
+        for j in reversed(range(nb)):
+            for i in reversed(range(na)):
+                if i + j <= 2:
+                    part = part + at[i][..., k0:k0 + 16] @ \
+                        bt[j][..., k0:k0 + 16, :]
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def _ssd_emulated(x, dt, A_log, B, C, D, n_in, Q=128):
+    """The CUDA ssd_scan's arithmetic in float32 torch on one batch row:
+    C B^T once a chunk, the chunk states, the sequential state pass and
+    the chunk outputs, with every fp32 factor split into 3 bf16 terms and
+    x, B, C into n_in (1: bf16 inputs, exact; 3: fp32). cum is double; a
+    decay exp(cum_i - cum_j) is taken from cum as a float pair hi + lo.
+    x (S, nh, hd), dt (S, nh), B/C (S, ds) -> y (S, nh, hd) before the
+    output rounding."""
+    S, nh, hd = x.shape
+    nc = S // Q
+    xc = x.reshape(nc, Q, nh, hd).permute(2, 0, 1, 3)      # (nh, nc, Q, hd)
+    dtc = dt.reshape(nc, Q, nh).permute(2, 0, 1)           # (nh, nc, Q)
+    Bc, Cc = B.reshape(nc, Q, -1), C.reshape(nc, Q, -1)    # (nc, Q, ds)
+    A = -torch.exp(A_log.double())
+    cum = torch.cumsum(dtc.double() * A[:, None, None], -1)   # (nh, nc, Q)
+    hi = cum.float()
+    lo = (cum - hi.double()).float()
+    i, j = torch.arange(Q)[:, None], torch.arange(Q)[None, :]
+    cb = _mm_terms(Cc, Bc.transpose(1, 2), n_in, n_in)       # (nc, Q, Q)
+    dec = torch.exp((hi[..., :, None] - hi[..., None, :])
+                    + (lo[..., :, None] - lo[..., None, :]))
+    P = torch.where(j <= i, cb * dec * dtc[..., None, :], 0.0)
+    y_in = _mm_terms(P, xc, 3, n_in)                         # (nh, nc, Q, hd)
+    cQ = cum[..., -1:]
+    w = torch.exp((cQ - cum).float()) * dtc                  # (nh, nc, Q)
+    st = _mm_terms((xc * w[..., None]).transpose(-1, -2), Bc, 3, n_in)
+    decay = torch.exp(cQ[..., 0].float())                    # (nh, nc)
+    h = torch.zeros(nh, hd, B.shape[-1])
+    prev = []
+    for c in range(nc):
+        prev.append(h)
+        h = h * decay[:, c, None, None] + st[:, c]
+    hp = torch.stack(prev, 1)                                # (nh, nc, hd, ds)
+    y_out = _mm_terms(Cc.expand(nh, -1, -1, -1), hp.transpose(-1, -2),
+                      n_in, 3)
+    y = y_in + torch.exp(cum.float())[..., None] * y_out + \
+        xc * D[:, None, None, None]
+    return y.permute(1, 2, 0, 3).reshape(S, nh, hd)
+
+
+def _ssd_float64(x, dt, A_log, B, C, D):
+    """The recurrence in float64, one batch row."""
+    x, dt, B, C = x.double(), dt.double(), B.double(), C.double()
+    A = -torch.exp(A_log.double())
+    h = torch.zeros(x.shape[1], x.shape[2], B.shape[-1], dtype=torch.float64)
+    ys = []
+    for t in range(x.shape[0]):
+        h = h * torch.exp(dt[t] * A)[:, None, None] + \
+            (dt[t, :, None] * x[t])[..., None] * B[t, None, None, :]
+        ys.append(torch.einsum("hds,s->hd", h, C[t]))
+    return torch.stack(ys) + x * D.double()[None, :, None]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_arithmetic_against_float64(dtype):
+    """The CUDA ssd_scan's chunk decomposition and operand splits,
+    emulated in float32 torch, stay within 1e-6 of max |y| of a float64
+    recurrence at the serving slice's width, (1, 2048, 2, 64, 64): the
+    accuracy argument of csrc/ssd_scan.cu, checked before any card.
+    bf16 inputs are rounded first and y is compared before its own
+    rounding to bf16."""
+    x, dt, A_log, B, C, D = (torch.as_tensor(a) for a in
+                             ssd_inputs(15, 1, 2048, 2, 64, 64))
+    x, B, C = (a.to(getattr(torch, dtype)).float() for a in (x, B, C))
+    got = _ssd_emulated(x[0], dt[0], A_log, B[0], C[0], D,
+                        n_in=3 if dtype == "float32" else 1)
+    want = _ssd_float64(x[0], dt[0], A_log, B[0], C[0], D)
+    err = float((got.double() - want).abs().max() / want.abs().max())
+    assert err < 1e-6, err
+
+
 @pytest.mark.parametrize("bad", ["cpu", "float16", "mixed", "dt_dtype",
                                  "hd", "chunk", "ragged", "shape"])
 def test_ssd_kernel_wrapper_raises(bad):
@@ -285,6 +386,23 @@ def test_cuda_ssd_kernel_matches_plain_version(cuda_device, shape, dtype):
     assert got[0].dtype == dt and got[1].dtype == torch.float32
     _hold(*got, want[0].float().cpu().numpy(), want[1].cpu().numpy(),
           y_rel=Y_REL if dtype == "float32" else BF16_Y_REL)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_kernel_many_chunks_split_bc(cuda_device):
+    """bf16 over 8 chunks of 128 (the state pass carries 7 states) with B
+    and C as views of one (B, S, 2 ds) tensor, as ssm_forward passes
+    them."""
+    x, dt, A_log, B, C, D = _t(ssd_inputs(16, 2, 1024, 8, 64, 64),
+                               cuda_device, torch.bfloat16, n_cast=1)
+    Bv, Cv = torch.cat([B, C], -1).to(torch.bfloat16).split(64, dim=-1)
+    before = skernel.KERNEL.launches
+    got = sops.ssd_scan(x, dt, A_log, Bv, Cv, D)
+    assert skernel.KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    want = sref.ssd_scan_ref(x, dt, A_log, Bv, Cv, D)
+    _hold(*got, want[0].float().cpu().numpy(), want[1].cpu().numpy(),
+          y_rel=BF16_Y_REL)
 
 
 @pytest.mark.cuda
