@@ -10,17 +10,26 @@
    sm_90a, one nvcc each, started together, and prints each build's
    seconds and ptxas register / shared-memory report.
 3. Kernel: both entry points of ensemble_fitness at the main path's
-   shapes and at edge shapes, each held against its plain PyTorch
-   version (max abs error <= 1e-5), and timed with CUDA events against
-   the plain version (in turns: plain, kernel, kernel, plain), with the
-   kernel's device time from torch.profiler beside it.
+   shapes and at edge shapes (dense rows, non-binary rows, all-zero and
+   single-member rows, ragged row counts), each held against its plain
+   PyTorch version (max abs error <= 1e-5), and timed with CUDA events
+   against the plain version (in turns: plain, kernel, kernel, plain),
+   with the kernel's device time from torch.profiler beside it and the
+   bound (pop read whole, the entries of acc and S its rows' nonzeros
+   pick, the (N, P, 2) objectives written; the count with S whole is
+   printed beside it).
 4. Slice: the paper's synchronous configuration (configs/paper_cnn.py,
    full=True: 20 clients, 5 CNN families, width 16, 10 classes, 60000
    synthetic 10x10x3 images, Dirichlet 0.1, NSGA-II 100 x 100, k = 5)
    with local training cut from 60 epochs to 2; selection scores every
    population through the kernel.
    The launch count is reset just before the run and must come out at
-   2 * generations + 1 per selection.
+   2 * generations + 1 per selection. One more selection under
+   torch.profiler prints its kernel launches beside the 43055 that the
+   dense-form kernel's run on this card counted, and beside those of the
+   same selection through that version's per-call fitness wrapper (a
+   diag(S) copy, two outputs, a stack), which must launch at least 201
+   more.
 5. Kernel: flash_attention at the reference's test shapes and variants,
    head dim 112, bf16 window and softcap at hd 64, 112 and 128, a ragged
    S = 100, the serving slice's shape (4, 32, 8, 2048, 2048, 128),
@@ -37,8 +46,9 @@
    the library yardstick (never called by the port), and the bound.
 6. Kernel: ssd_scan and wkv_scan at the reference's test shapes
    (tests/test_kernels.py:86-90,107-111), its padding shapes (S = 200
-   and 100), a wkv case with a carried state and one with strong decay
-   (logw = -2, past the range of the TPU kernel's factorisation), and
+   and 100), a wkv case with a carried state and two with strong decay
+   (logw = -2 and -8 on every step, past the range of the TPU kernel's
+   factorisation; they must also be finite), and
    the serving slices' shapes, ssd (4, 2048, 112, 64, 64) and wkv (4,
    2048, 40, 64), in fp32 and bf16 (dt and logw fp32 as the models pass
    them; at the slices' shapes B and C are views of one tensor and wkv
@@ -46,7 +56,7 @@
    its plain version (the naive recurrence) on
    the card: y max abs error / max |y| < 1e-5 in fp32 and < 2**-7 (one
    bf16 step at the top of y's range) in bf16, the fp32 state atol =
-   rtol = 1e-3. At ssd's slice shape y is also held against a float64
+   rtol = 1e-3. At both slice shapes y is also held against a float64
    recurrence: within 1e-6 of max |y| in fp32, printed in bf16. At the
    slices' shapes: timed in turns against the plain version, the
    kernels' device time from torch.profiler (every kernel of a call),
@@ -114,9 +124,11 @@ SERVES = [  # (arch, config overrides, the kernel package its prefill runs)
     ("zamba2-7b", {}, "ssd_scan")]
 SCAN_Y_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}   # of max |y|
 SCAN_STATE_TOL = 1e-3
-SSD_F64_TOL = 1e-6     # fp32 ssd_scan at the slice shape, of max |y|
+SCAN_F64_TOL = 1e-6    # fp32 scans at the slice shapes, of max |y|
 SSD_SLICE = (4, 2048, 112, 64, 64)     # zamba2-7b prefill, batch 4
 WKV_SLICE = (4, 2048, 40, 64)          # rwkv6-3b prefill, batch 4
+SELECT_LAUNCHES_DENSE = 43055  # kernels of one profiled select() with
+                               # the dense-form fitness kernel, H100
 PAPER_SPEC = {
     "data": {"kind": "synthetic_images", "n_clients": 20, "n_classes": 10,
              "n_samples": 60000, "image_size": 10, "channels": 3,
@@ -160,36 +172,44 @@ def nvidia_smi(query: str) -> str:
 
 def fitness_bound(pop):
     """Least time (ms) the card needs for one batched call on `pop`
-    (N, P, M): the function's inputs pop, acc (N, M) and S (N, M, M)
-    each read once and its two (N, P) outputs each written once, over
-    the memory rate, against the operations over the fp32 peak. diag(S)
-    is part of S and is not counted again. Returns (ms, bound_by) for
-    the operations this data needs (rows hold k ones: k^2 multiply-adds
-    for the quadratic form, 3 k for strength, self similarity and k) and
-    for the dense product (2 N P M^2 + 6 N P M)."""
+    (N, P, M), the larger of the bytes over the memory rate and the
+    operations over the fp32 peak. The bytes this data needs: pop read
+    whole (each row's nonzeros have to be found), of acc (N, M) and S (N,
+    M, M) only the entries the rows' nonzeros pick (acc[n, i] and S[n, i,
+    j] for i, j nonzero in one row of client n, each counted once), and
+    the (N, P, 2) objectives written once. The operations: k^2
+    multiply-adds a row for the quadratic form and 3 k for strength, self
+    similarity and k, k the row's nonzeros. Returns ((ms, bound_by), (ms,
+    bound_by) with acc and S counted whole, the count of earlier
+    versions)."""
+    import torch
     N, P, M = pop.shape
-    nbytes = 4 * (N * P * M + N * M + N * M * M + 2 * N * P)
-    k = pop.sum(-1).double()
+    nz = (pop != 0).double()
+    k = nz.sum(-1)
     needed = float((2 * (k * k + 3 * k)).sum())
-    dense = 2 * N * P * M * M + 3 * 2 * N * P * M
-    t_bytes = nbytes / PEAK_BYTES
+    acc_used = int((nz.sum(1) > 0).sum())
+    s_used = int((torch.einsum("npi,npj->nij", nz, nz) > 0).sum())
     out = []
-    for flops in (needed, dense):
-        t_ops = flops / PEAK_FP32_FLOPS
+    for n_acc, n_s in ((acc_used, s_used), (N * M, N * M * M)):
+        t_bytes = 4 * (N * P * M + n_acc + n_s + 2 * N * P) / PEAK_BYTES
+        t_ops = needed / PEAK_FP32_FLOPS
         out.append((1e3 * max(t_bytes, t_ops),
                     "bytes" if t_bytes >= t_ops else "operations"))
     return out
 
 
-def make_inputs(torch, rng, N, P, M, dense=False):
-    """Populations whose rows hold k in {0, 1, 5, 5, ...} ones (dense:
-    about M / 2 ones), accuracies and a symmetric similarity matrix."""
+def make_inputs(torch, rng, N, P, M, rows="k5"):
+    """Populations whose rows hold k in {0, 1, 5, 5, 5} ones ("k5"),
+    about M / 2 ones ("dense") or about M / 16 nonzeros of any value and
+    sign ("values"), accuracies and a symmetric similarity matrix."""
     import numpy as np
     pop = np.zeros((N, P, M), np.float32)
     for n in range(N):
         for p in range(P):
-            if dense:
+            if rows == "dense":
                 pop[n, p] = rng.random(M) < 0.5
+            elif rows == "values":
+                pop[n, p] = (rng.random(M) < 1 / 16) * rng.normal(size=M)
             else:
                 k = min((0, 1, 5, 5, 5)[p % 5], M)
                 pop[n, p, rng.choice(M, k, replace=False)] = 1.0
@@ -216,9 +236,10 @@ def time_ms(torch, fn, iters=200, warmup=20):
 def device_ms(torch, fn, iters=50, name="ensemble_fitness_kernel"):
     """Device time from torch.profiler: (the kernels whose names hold
     `name`, per call; every kernel of the calls, per call; the number of
-    their launches recorded), times in ms, None where the profiler saw no
-    device time. A call runs each kernel of `name` once (ssd_scan runs
-    four), so a call's time is the sum over those kernels of each one's
+    their launches recorded; {kernel: its mean per recorded launch}),
+    times in ms, None where the profiler saw no device time. A call runs each kernel of `name` once (ssd_scan runs
+    four, wkv_scan three), so a call's time is the sum over those kernels
+    of each one's
     mean per recorded launch: the profiler may drop records of long
     kernels on this machine, and this sum equals the total over the
     calls divided by the calls when it drops none."""
@@ -236,8 +257,9 @@ def device_ms(torch, fn, iters=50, name="ensemble_fitness_kernel"):
     n_own = sum(e.count for e in own)
     own_us = sum(e.self_device_time_total / e.count for e in own)
     every_us = sum(e.self_device_time_total for e in events)
+    parts = {e.key: e.self_device_time_total / e.count / 1e3 for e in own}
     return (own_us / 1e3 if own_us else None,
-            every_us / 1e3 / iters if every_us else None, n_own)
+            every_us / 1e3 / iters if every_us else None, n_own, parts)
 
 
 def kernel_phase(torch):
@@ -245,17 +267,18 @@ def kernel_phase(torch):
 
     from repro_torch.kernels.ensemble_fitness import kernel, ref
     rng = np.random.default_rng(0)
-    cases = [  # (entry point, N, P, M, dense rows)
-        ("batched", 32, 100, 100, False), ("batched", 32, 200, 100, False),
-        ("single", 1, 100, 100, False), ("single", 1, 200, 100, False),
-        ("batched", 4, 128, 320, True), ("single", 1, 37, 320, True),
-        ("batched", 3, 50, 7, False), ("single", 1, 50, 7, True),
-        ("batched", 2, 1, 100, False), ("single", 1, 1, 7, False),
+    cases = [  # (entry point, N, P, M, rows)
+        ("batched", 32, 100, 100, "k5"), ("batched", 32, 200, 100, "k5"),
+        ("single", 1, 100, 100, "k5"), ("single", 1, 200, 100, "k5"),
+        ("batched", 4, 128, 320, "dense"), ("single", 1, 37, 320, "dense"),
+        ("batched", 3, 50, 7, "k5"), ("single", 1, 50, 7, "dense"),
+        ("batched", 2, 1, 100, "k5"), ("single", 1, 1, 7, "k5"),
+        ("batched", 5, 61, 100, "values"), ("single", 1, 45, 320, "values"),
     ]
     max_err = 0.0
     timings = {}
-    for entry, N, P, M, dense in cases:
-        pop, acc, S = make_inputs(torch, rng, N, P, M, dense)
+    for entry, N, P, M, rows in cases:
+        pop, acc, S = make_inputs(torch, rng, N, P, M, rows)
         if entry == "batched":
             def run_kernel(pop=pop, acc=acc, S=S):
                 return kernel.ensemble_fitness_batched(pop, acc, S)
@@ -273,16 +296,16 @@ def kernel_phase(torch):
         want = run_plain()
         err = max(float((g - w).abs().max()) for g, w in zip(got, want))
         print(f"kernel ensemble_fitness[{entry}] (N, P, M) = {(N, P, M)}"
-              f"{' dense rows' if dense else ''}: max abs err {err:.3e}")
+              f" {rows} rows: max abs err {err:.3e}")
         check(err <= TOL, f"ensemble_fitness[{entry}] at {(N, P, M)} "
                           f"disagrees with its plain version: {err}")
         max_err = max(max_err, err)
-        if M == 100 and P in (100, 200):     # the main path's shapes
+        if M == 100 and P in (100, 200) and rows == "k5":   # main path
             # in turns: plain, kernel, kernel, plain
             p1, k1, k2, p2 = (time_ms(torch, fn) for fn in
                               (run_plain, run_kernel, run_kernel, run_plain))
             k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            own_ms, call_ms, n_rec = device_ms(torch, run_kernel)
+            own_ms, call_ms, n_rec, _ = device_ms(torch, run_kernel)
             (b_ms, b_by), (d_ms, d_by) = fitness_bound(pop)
             timings[(entry, N, P, M)] = (k_ms, p_ms, b_ms, b_by)
             share(f"ensemble_fitness[{entry}] {(N, P, M)}", b_ms, k_ms)
@@ -291,8 +314,8 @@ def kernel_phase(torch):
                   f"({p1:.6f}, {p2:.6f}) per call; on the device (profiler, "
                   f"{n_rec} of 50 launches recorded) the kernel {own_ms} ms, "
                   f"all kernels of the call "
-                  f"{call_ms} ms; bound {b_ms:.6f} ms ({b_by}; dense "
-                  f"product {d_ms:.6f} ms, {d_by}), share of bound "
+                  f"{call_ms} ms; bound {b_ms:.6f} ms ({b_by}; with acc "
+                  f"and S read whole {d_ms:.6f} ms, {d_by}), share of bound "
                   f"{b_ms / k_ms:.4f}; no single PyTorch call computes "
                   "this function (library: none)")
     print("clocks/power after timing:",
@@ -404,10 +427,9 @@ def slice_phase(torch):
     return launches, n_select
 
 
-def profile_select(torch, engine):
-    """One more selection of the same fleet under torch.profiler (after
-    the launch count was read): device time by kernel and the device's
-    busy share of the selection's wall time (profiler on)."""
+def _profiled_select(torch, engine):
+    """(wall s, device busy s, kernel launches, events) of one select()
+    under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.obs.metrics import Stopwatch
@@ -420,13 +442,50 @@ def profile_select(torch, engine):
         wall = sw.stop()
     kernels = [e for e in prof.key_averages()
                if e.device_type.name == "CUDA" and e.self_device_time_total]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    print(f"profiled select(): wall {wall:.6f} s, device busy "
-          f"{busy_us / 1e6:.6f} s ({busy_us / 1e6 / wall:.4f} of wall), "
-          f"{sum(e.count for e in kernels)} kernel launches")
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    return wall, busy, sum(e.count for e in kernels), kernels
+
+
+def profile_select(torch, engine):
+    """One more selection of the same fleet under torch.profiler (after
+    the launch count was read): device time by kernel and the device's
+    busy share of the selection's wall time (profiler on). Then the same
+    selection again with the dense-form version's per-call fitness
+    wrapper around the same kernel (a copy of diag(S), two outputs, a
+    stack of them), so that the launches the gather form's wrapper saves
+    show on the same data: the GA draws the same numbers and the
+    objectives are the same values."""
+    from repro_torch.core import selection
+    from repro_torch.kernels.ensemble_fitness import kernel
+
+    wall, busy, n, kernels = _profiled_select(torch, engine)
+    print(f"profiled select(): wall {wall:.6f} s, device busy {busy:.6f} s "
+          f"({busy / wall:.4f} of wall), {n} kernel launches (dense "
+          f"form: {SELECT_LAUNCHES_DENSE})")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms  "
               f"{e.count:6d} x  {e.key[:90]}")
+
+    def dense_form_eval_fn(acc, S):
+        def eval_fn(pop):
+            torch.diagonal(S, dim1=-2, dim2=-1).contiguous()
+            out = kernel.Objectives(acc, S)(pop.contiguous())
+            return torch.stack([out[..., 0], out[..., 1]], dim=-1)
+        return eval_fn
+    current = selection._eval_fn
+    selection._eval_fn = dense_form_eval_fn
+    try:
+        wall_d, _, n_d, _ = _profiled_select(torch, engine)
+    finally:
+        selection._eval_fn = current
+    wall2, _, n2, _ = _profiled_select(torch, engine)
+    print(f"profiled select() with the dense form's per-call wrapper on "
+          f"the same data: wall {wall_d:.6f} s, {n_d} kernel launches; "
+          f"with the gather form's again: wall {wall2:.6f} s, {n2} "
+          f"launches; the gather form launches {n_d - n} and {n_d - n2} "
+          "fewer (2 x 201 expected)")
+    check(min(n_d - n, n_d - n2) >= 201, f"select() saves {n_d - n} and "
+          f"{n_d - n2} launches, expected at least 201 (the diag(S) copies)")
 
 
 def attention_bound(B, H, KV, Sq, Sk, hd, causal=True, window=0,
@@ -545,8 +604,8 @@ def flash_phase(torch):
                 p1, k1, l1 = tm(run_plain, 3), tm(run_kernel), tm(run_sdpa)
                 l2, k2, p2 = tm(run_sdpa), tm(run_kernel), tm(run_plain, 3)
                 m_ms, model = None, ""
-            own_ms, _, n_rec = device_ms(torch, run_kernel, iters=iters,
-                                         name="flash_fwd")
+            own_ms, _, n_rec, _ = device_ms(torch, run_kernel, iters=iters,
+                                            name="flash_fwd")
             b_ms, b_by, flops, nbytes = attention_bound(*shape)
             k_ms, p_ms, lib_ms = (k1 + k2) / 2, (p1 + p2) / 2, (l1 + l2) / 2
             timings[shape] = dict(err=err, ms=k_ms, plain_ms=p_ms,
@@ -732,6 +791,22 @@ def ssd_float64(x, dt, A_log, B, C, D):
     return torch.stack(ys, 1) + x * D.double()[None, None, :, None]
 
 
+def wkv_float64(r, k, v, logw, u, s0):
+    """The wkv recurrence in float64 on the card: y (float64)."""
+    import torch
+    r, k, v, w = r.double(), k.double(), v.double(), logw.double()
+    s = s0.double() if s0 is not None else r.new_zeros(
+        r.shape[0], r.shape[2], r.shape[3], r.shape[3])
+    ud = u.double()
+    ys = []
+    for t in range(r.shape[1]):
+        rt, kt, vt = r[:, t], k[:, t], v[:, t]
+        ys.append(torch.einsum("bhk,bhkv->bhv", rt, s)
+                  + (rt * ud * kt).sum(-1, keepdim=True) * vt)
+        s = s * w[:, t].exp()[..., None] + kt[..., None] * vt[:, :, None]
+    return torch.stack(ys, 1)
+
+
 def wkv_case(torch, gen, B, S, nh, hd, dtype, s0=False, logw=None):
     n = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa
     dt = getattr(torch, dtype)
@@ -768,6 +843,7 @@ def scan_phase(torch):
                           ((2, 100, 2, 32, 64), False, None),
                           ((2, 128, 2, 32, 64), True, None),
                           ((2, 128, 2, 64, 64), False, -2.0),
+                          ((2, 256, 2, 64, 64), True, -8.0),
                           (WKV_SLICE + (64,), True, None)]:
         for dtype in ("float32", "bfloat16"):
             cases.append(("wkv_scan", shape, dtype,
@@ -797,7 +873,7 @@ def scan_phase(torch):
                     (inp[0].shape[0],) + inp[4].shape + inp[4].shape[-1:],
                     device="cuda")
                 return wkv_chunk_scan(*inp[:5], s0)
-            lib, kname = wk.KERNEL, "wkv_scan_kernel"
+            lib, kname = wk.KERNEL, "wkv_scan"
         before = lib.launches
         y, st = run_kernel()
         torch.cuda.synchronize()
@@ -815,17 +891,19 @@ def scan_phase(torch):
               f"state max abs err {s_err:.3e}")
         check(ok, f"{name} at {shape} {dtype} disagrees with its plain "
                   f"version: y {y_rel} of max |y|, state {s_err}")
-        if name == "ssd_scan" and shape[:-1] == SSD_SLICE:
-            y64 = ssd_float64(*inp)
+        check(bool(torch.isfinite(y).all()), f"{name} at {shape} {dtype}: "
+              "non-finite y")
+        if shape[:-1] in (SSD_SLICE, WKV_SLICE):
+            y64 = (ssd_float64 if name == "ssd_scan" else wkv_float64)(*inp)
             f64 = float((y.double() - y64).abs().max() / y64.abs().max())
             p64 = float((y0.double() - y64).abs().max() / y64.abs().max())
             print(f"  {name} {shape[:-1]} {dtype} against a float64 "
                   f"recurrence: y {f64:.3e} of max |y| (the plain version "
                   f"{p64:.3e}{'' if dtype == 'float32' else '; bf16 y'})")
             if dtype == "float32":
-                check(f64 <= SSD_F64_TOL, f"ssd_scan fp32 at the slice "
+                check(f64 <= SCAN_F64_TOL, f"{name} fp32 at the slice "
                       f"shape is {f64} of max |y| from float64, above "
-                      f"{SSD_F64_TOL}")
+                      f"{SCAN_F64_TOL}")
             del y64
         del y, st, y0, st0
         if dtype == "bfloat16" and shape[:-1] in (SSD_SLICE, WKV_SLICE):
@@ -836,8 +914,8 @@ def scan_phase(torch):
                                              (run_kernel, 20),
                                              (run_plain, 3)))
             c_ms = time_ms(torch, run_chunked, iters=5, warmup=1)
-            own_ms, _, n_rec = device_ms(torch, run_kernel, iters=10,
-                                         name=kname)
+            own_ms, _, n_rec, parts = device_ms(torch, run_kernel,
+                                                iters=10, name=kname)
             if name == "ssd_scan":
                 counts, terms = ssd_cost(*shape[:5], 2), TERMS
             else:
@@ -865,6 +943,8 @@ def scan_phase(torch):
                   f"{(flops + tc_flops) / k_ms / 1e9:.2f} TFLOP/s of the "
                   "least work; no single PyTorch call "
                   "computes this function (library: none)")
+            for key, ms in parts.items():
+                print(f"    {ms:.6f} ms a launch  {key[:90]}")
         del inp
         torch.cuda.empty_cache()
     print("clocks/power after timing:",

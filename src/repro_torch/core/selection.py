@@ -6,8 +6,9 @@ Pareto-front member with the best OVERALL validation accuracy
 `select_ensemble` scores ONE client; `select_ensembles` a whole client
 batch, the genetic loop running in lockstep with a distinct random
 stream per client. Every evaluation scores the population of EVERY
-client with one call of the batched ensemble_fitness wrapper: the CUDA
-kernel on CUDA tensors, its plain version on CPU tensors.
+client with one call of the ensemble_fitness objectives (one kernel
+launch into one (N, P, 2) buffer on CUDA tensors, the plain version on
+CPU tensors).
 """
 from __future__ import annotations
 
@@ -39,11 +40,9 @@ def _pick_winner(pop, objs, ranks, probs_val, labels_val, acc):
 
 
 def _eval_fn(acc, S):
-    """pop (..., P, M) -> objectives (..., P, 2)."""
-    def eval_fn(pop):
-        st, dv = ef_ops.ensemble_fitness(pop.contiguous(), acc, S)
-        return torch.stack([st, dv], dim=-1)
-    return eval_fn
+    """pop (..., P, M) -> objectives (..., P, 2), straight from the
+    kernel's buffer; acc and S are checked once for the whole run."""
+    return ef_ops.objectives_fn(acc, S)
 
 
 def select_ensemble(probs_val, labels_val, nsga: NSGAConfig, key=None,

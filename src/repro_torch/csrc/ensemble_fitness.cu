@@ -1,147 +1,151 @@
 // ensemble_fitness for Hopper (sm_90a): score N clients' NSGA-II
-// populations in one launch.
+// populations in one launch, in gather form.
 //
 // Replaces the Pallas TPU kernels in src/repro/kernels/ensemble_fitness/
 // kernel.py: `ensemble_fitness` (pallas_call at :77, one client) and
 // `ensemble_fitness_batched` (pallas_call at :109, grid (N, P/128)).
-// For each client n and chromosome row p (0/1 floats, k ones):
+// For each client n and chromosome row p (c = pop[n, p], k = sum_i c_i):
 //
-//   strength[n,p]  = (C @ acc)[p] / max(k, 1)
-//   diversity[n,p] = 1 - (rowsum((C @ S) o C)[p] - (C @ diag S)[p])
+//   strength[n,p]  = (c . acc[n]) / max(k, 1)
+//   diversity[n,p] = 1 - (c S[n] c^T - sum_i c_i S[n,i,i])
 //                        / max(k (k - 1), 1)
 //
-// Design. The TPU version keeps all of S resident in VMEM; a Hopper
-// block has at most 227 KB of shared memory and S is already 400 KB at
-// M = 320, so S is streamed through shared memory in TILE x TILE tiles
-// instead. Grid (N, ceil(P / BLOCK_P)); a block of TILE x ROW_GROUPS
-// threads owns BLOCK_P chromosome rows of one client. Thread (ty, tx)
-// accumulates (C @ S)[p, j0 + tx] for its ROWS_PER_THREAD rows over the
-// i-tiles of one column tile j0, then folds that column into the
-// quadratic form, C @ acc, C @ diag S and k. One warp holds the 32
-// columns of ROWS_PER_THREAD rows, so the final row sums are warp
-// shuffles. Ragged edges (P, M not multiples of the tile) load zeros.
-// Plain fp32 FMA, no tensor cores and no TF32: the result matches the
-// plain version to about 1e-6.
+// written to one (N, P, 2) buffer as (strength, diversity).
 //
-// Bound at the main path's shapes (N = 32, P = 200, M = 100) on an H100
-// SXM: 2 N P M^2 = 1.28e8 FLOP at 67 TFLOP/s fp32 is about 1.9 us; the
-// 3.9 MB the function must move at 3.35 TB/s is about 1.2 us. So it is
-// bound by operations, and at these sizes by launch latency in practice.
-// Rows hold exactly k ones, so a gather over the k^2 entries of S per row
-// would cut the operations to N P k^2; that redesign is later work.
+// What bounds it. On the main path (N = 32 clients, P = 200 rows, M =
+// 100 models) rows are 0/1 with k = 5 ones (NSGA-II chromosomes), so the
+// function needs pop whole (2.56 MB), the entries of acc and S that the
+// rows' nonzeros pick (at most 12.8 KB and 1.28 MB) and the outputs (51
+// KB): about 1 us at 3.35 TB/s, and N P (k^2 + 3 k) multiply-adds, far
+// less. TPU-style dense form, C S C^T, costs 2 N P M^2 = 1.28e8 FLOP.
+//
+// Design: the gather form. One warp a row (n, p), 8 rows a block. The
+// warp reads the row with 16-byte loads (element loads when M is not a
+// multiple of 4), compacts its nonzero indices and values into shared
+// memory with __ballot_sync and __popc, then sums c_a c_b S[n, i_a, i_b]
+// over the nnz^2 pairs of nonzeros (lanes over the flattened pairs) and
+// c_a acc[n, i_a], c_a S[n, i_a, i_a] and c_a over the nonzeros, and
+// reduces the four sums with shuffles. Weighting by the values keeps the
+// function the same for any row, non-binary and dense rows included; a
+// row of nnz nonzeros reads nnz^2 entries of S (25 at k = 5, from L2:
+// S is 40 KB a client). No diag(S) copy and no second output buffer.
+// Shared memory holds M (index, value) pairs a warp; the block takes
+// fewer warps, and opts in above 48 KB, when M is large (M <= 29056).
+// Plain fp32 FMA: the sums follow another order than the plain version's
+// matrix products, within about 1e-7 at the main path's sizes.
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int TILE = 32;              // columns of S per tile = warp width
-constexpr int ROW_GROUPS = 8;         // warps per block
-constexpr int ROWS_PER_THREAD = 4;
-constexpr int BLOCK_P = ROW_GROUPS * ROWS_PER_THREAD;   // 32 rows a block
+constexpr int WARPS = 8;                      // rows a block, at most
+constexpr size_t MAX_SMEM = 227 * 1024;       // a block's shared memory
+constexpr int MAX_M = (int)(MAX_SMEM / 8);    // one warp a block
 
-__global__ void __launch_bounds__(TILE * ROW_GROUPS)
-ensemble_fitness_kernel(const float* __restrict__ pop,
-                        const float* __restrict__ acc,
-                        const float* __restrict__ S,
-                        const float* __restrict__ diag,
-                        float* __restrict__ strength,
-                        float* __restrict__ diversity,
-                        int P, int M) {
-  __shared__ float c_tile[BLOCK_P][TILE + 1];   // C[p0 + r, i0 + i]
-  __shared__ float s_tile[TILE][TILE + 1];      // S[i0 + i, j0 + j]
+struct Params {
+  const float* pop;    // (N, P, M)
+  const float* acc;    // (N, M)
+  const float* S;      // (N, M, M)
+  float* out;          // (N, P, 2): strength, diversity
+  int rows, P, M;      // rows = N P
+};
 
-  const int n = blockIdx.x;
-  const int p0 = blockIdx.y * BLOCK_P;
-  const int tx = threadIdx.x;                   // column within the tile
-  const int ty = threadIdx.y;                   // row group = warp
-  const float* pop_n = pop + (size_t)n * P * M;
-  const float* S_n = S + (size_t)n * M * M;
-  const float* acc_n = acc + (size_t)n * M;
-  const float* diag_n = diag + (size_t)n * M;
-
-  float quad[ROWS_PER_THREAD], st[ROWS_PER_THREAD], self_sim[ROWS_PER_THREAD],
-      kcount[ROWS_PER_THREAD];
+__device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
-  for (int r = 0; r < ROWS_PER_THREAD; ++r) {
-    quad[r] = 0.f; st[r] = 0.f; self_sim[r] = 0.f; kcount[r] = 0.f;
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Appends this lane's x (at index i) to the warp's list when nonzero.
+__device__ __forceinline__ void push(float x, int i, int lane, int& n,
+                                     int* idx, float* val) {
+  const bool nz = x != 0.0f;
+  const unsigned mask = __ballot_sync(0xffffffffu, nz);
+  if (nz) {
+    const int at = n + __popc(mask & ((1u << lane) - 1u));
+    idx[at] = i;
+    val[at] = x;
   }
+  n += __popc(mask);
+}
 
-  for (int j0 = 0; j0 < M; j0 += TILE) {
-    const int j = j0 + tx;
-    float cs[ROWS_PER_THREAD];
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_THREAD; ++r) cs[r] = 0.f;
+__global__ void __launch_bounds__(WARPS * 32)
+ensemble_fitness_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32, M = p.M;
+  int* idx = reinterpret_cast<int*>(smem) + (size_t)warp * M;
+  float* val = reinterpret_cast<float*>(smem)
+      + (size_t)warps * M + (size_t)warp * M;
+  const int r = blockIdx.x * warps + warp;
+  if (r >= p.rows) return;                    // a whole warp leaves
+  const int n = r / p.P;
+  const float* row = p.pop + (size_t)r * M;
 
-    for (int i0 = 0; i0 < M; i0 += TILE) {
-      // stage C[p0:p0+BLOCK_P, i0:i0+TILE] and S[i0:i0+TILE, j0:j0+TILE]
-#pragma unroll
-      for (int r = 0; r < ROWS_PER_THREAD; ++r) {
-        const int row = ty + ROW_GROUPS * r;
-        const int p = p0 + row, i = i0 + tx;
-        c_tile[row][tx] = (p < P && i < M) ? pop_n[(size_t)p * M + i] : 0.f;
-      }
-      for (int row = ty; row < TILE; row += ROW_GROUPS) {
-        const int i = i0 + row;
-        s_tile[row][tx] = (i < M && j < M) ? S_n[(size_t)i * M + j] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int i = 0; i < TILE; ++i) {
-        const float s = s_tile[i][tx];
-#pragma unroll
-        for (int r = 0; r < ROWS_PER_THREAD; ++r)
-          cs[r] = fmaf(c_tile[ty + ROW_GROUPS * r][i], s, cs[r]);
-      }
-      __syncthreads();
+  int nnz = 0;
+  if (M % 4 == 0) {                           // rows are 16-byte aligned
+    for (int base = 0; base < M; base += 128) {
+      const int i = base + 4 * lane;
+      const float4 x = i < M ? __ldg(reinterpret_cast<const float4*>(row + i))
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      push(x.x, i, lane, nnz, idx, val);
+      push(x.y, i + 1, lane, nnz, idx, val);
+      push(x.z, i + 2, lane, nnz, idx, val);
+      push(x.w, i + 3, lane, nnz, idx, val);
     }
-
-    // fold column j into the row sums
-    const float a = (j < M) ? acc_n[j] : 0.f;
-    const float d = (j < M) ? diag_n[j] : 0.f;
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_THREAD; ++r) {
-      const int p = p0 + ty + ROW_GROUPS * r;
-      const float c = (p < P && j < M) ? pop_n[(size_t)p * M + j] : 0.f;
-      quad[r] = fmaf(cs[r], c, quad[r]);
-      st[r] = fmaf(c, a, st[r]);
-      self_sim[r] = fmaf(c, d, self_sim[r]);
-      kcount[r] += c;
+  } else {
+    for (int base = 0; base < M; base += 32) {
+      const int i = base + lane;
+      push(i < M ? __ldg(row + i) : 0.0f, i, lane, nnz, idx, val);
     }
   }
+  __syncwarp();
 
-#pragma unroll
-  for (int r = 0; r < ROWS_PER_THREAD; ++r) {
-#pragma unroll
-    for (int off = TILE / 2; off > 0; off >>= 1) {
-      quad[r] += __shfl_down_sync(0xffffffffu, quad[r], off);
-      st[r] += __shfl_down_sync(0xffffffffu, st[r], off);
-      self_sim[r] += __shfl_down_sync(0xffffffffu, self_sim[r], off);
-      kcount[r] += __shfl_down_sync(0xffffffffu, kcount[r], off);
-    }
-    const int p = p0 + ty + ROW_GROUPS * r;
-    if (tx == 0 && p < P) {
-      const float k = kcount[r];
-      const float pairs = fmaxf(k * (k - 1.f), 1.f);
-      strength[(size_t)n * P + p] = st[r] / fmaxf(k, 1.f);
-      diversity[(size_t)n * P + p] = 1.f - (quad[r] - self_sim[r]) / pairs;
-    }
+  const float* acc = p.acc + (size_t)n * M;
+  const float* S = p.S + (size_t)n * M * M;
+  float st = 0.0f, self = 0.0f, k = 0.0f, quad = 0.0f;
+  for (int a = lane; a < nnz; a += 32) {
+    const int i = idx[a];
+    const float c = val[a];
+    st = fmaf(c, __ldg(acc + i), st);
+    self = fmaf(c, __ldg(S + (size_t)i * M + i), self);
+    k += c;
+  }
+  for (int q = lane; q < nnz * nnz; q += 32) {
+    const int a = q / nnz, b = q - a * nnz;
+    quad = fmaf(val[a] * val[b], __ldg(S + (size_t)idx[a] * M + idx[b]),
+                quad);
+  }
+  st = warp_sum(st);
+  self = warp_sum(self);
+  k = warp_sum(k);
+  quad = warp_sum(quad);
+  if (lane == 0) {
+    const float pairs = fmaxf(k * (k - 1.0f), 1.0f);
+    *reinterpret_cast<float2*>(p.out + (size_t)r * 2) =
+        make_float2(st / fmaxf(k, 1.0f), 1.0f - (quad - self) / pairs);
   }
 }
 
 }  // namespace
 
 // Plain C entry point for ctypes. All pointers are device pointers to
-// contiguous fp32 arrays: pop (N, P, M), acc (N, M), S (N, M, M),
-// diag (N, M), strength and diversity (N, P). Launches on `stream` and
-// returns the cudaError_t of the launch (0 on success); no synchronise.
+// contiguous fp32 arrays: pop (N, P, M), acc (N, M), S (N, M, M) and out
+// (N, P, 2). Launches on `stream` and returns the cudaError_t of the
+// launch (0 on success); no synchronise. M is at most 29056.
 extern "C" int ensemble_fitness_launch(const float* pop, const float* acc,
-                                       const float* S, const float* diag,
-                                       float* strength, float* diversity,
-                                       int N, int P, int M, void* stream) {
-  if (N <= 0 || P <= 0 || M <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)N, (unsigned)((P + BLOCK_P - 1) / BLOCK_P));
-  const dim3 block(TILE, ROW_GROUPS);
-  ensemble_fitness_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      pop, acc, S, diag, strength, diversity, P, M);
-  return (int)cudaGetLastError();
+                                       const float* S, float* out, int N,
+                                       int P, int M, void* stream) {
+  if (N <= 0 || P <= 0 || M <= 0 || M > MAX_M)
+    return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)N * P;
+  const int warps = (int)(MAX_SMEM / (8 * (size_t)M)) < WARPS
+      ? (int)(MAX_SMEM / (8 * (size_t)M)) : WARPS;
+  const Params p{pop, acc, S, out, (int)rows, P, M};
+  return (int)launch_opt_in<ensemble_fitness_kernel>(
+      dim3((unsigned)((rows + warps - 1) / warps)), warps * 32, MAX_SMEM,
+      (size_t)warps * M * 8, p, static_cast<cudaStream_t>(stream));
 }

@@ -71,8 +71,7 @@ namespace {
 
 constexpr int NT = 256;                  // threads a block: 8 warps
 constexpr int QM = 128, HM = 64, DM = 64;  // chunk, hd and ds maxima
-constexpr int LD = 72;                   // bf16 row of 64 + 8 against
-                                         // ldmatrix bank conflicts
+constexpr int LD = TILE_LD;              // bf16 row of 64 + 8
 
 struct Params {
   const void* x;
@@ -88,99 +87,6 @@ struct Params {
   float* decay;    // (Bb, nh, nc): exp(cum_Q)
   int Bb, S, nh, hd, ds, Q, nc;
   long long bc_bstride, bc_tstride;   // B and C strides, elements
-};
-
-// Terms of an operand: an exact bf16 input is one term, an fp32 one three.
-template <typename T>
-__host__ __device__ constexpr int terms() { return sizeof(T) == 2 ? 1 : 3; }
-
-// lo and hi split into K bf16 terms each, packed low, high: term k holds
-// what terms 0..k-1 left over, rounded to nearest (each residual is exact
-// in fp32), so the K terms sum to the value within 2^-(8 K) relative.
-template <int K>
-__device__ __forceinline__ void split_pack(float lo, float hi,
-                                           uint32_t (&r)[3]) {
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    r[k] = *reinterpret_cast<const uint32_t*>(&v);
-    lo -= __low2float(v);
-    hi -= __high2float(v);
-  }
-}
-
-// 16 bytes of bf16 or fp32 as floats.
-__device__ __forceinline__ void unpack(const uint4& r, float (&f)[8]) {
-  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    f[2 * k] = __low2float(b[k]);
-    f[2 * k + 1] = __high2float(b[k]);
-  }
-}
-__device__ __forceinline__ void unpack(const uint4& r, float (&f)[4]) {
-  f[0] = __uint_as_float(r.x);
-  f[1] = __uint_as_float(r.y);
-  f[2] = __uint_as_float(r.z);
-  f[3] = __uint_as_float(r.w);
-}
-
-// A ROWS x 64 tile, rows [0, n) x cols [0, m) of `src` (element (i, j) at
-// i * rs + j) and zeros elsewhere, as floats: thread `tid` holds the V =
-// 16 / sizeof(T) elements from (tid + k NT) V on in v[k], and issues all
-// its 16-byte loads before it uses any (a ragged or unaligned run is
-// loaded element by element).
-template <int ROWS, typename T>
-struct Tile {
-  static constexpr int V = 16 / sizeof(T), PER = ROWS * 64 / V / NT;
-  float v[PER][V];
-  __device__ __forceinline__ Tile(const T* __restrict__ src, size_t rs,
-                                  int n, int m) {
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int idx = (threadIdx.x + k * NT) * V, i = idx / 64, j = idx % 64;
-      const T* ptr = src + (size_t)i * rs + j;
-      if (i < n && j + V <= m && (reinterpret_cast<uintptr_t>(ptr) & 15) == 0) {
-        unpack(__ldg(reinterpret_cast<const uint4*>(ptr)), v[k]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < V; ++e)
-          v[k][e] = (i < n && j + e < m) ? load(ptr, e) : 0.0f;
-      }
-    }
-  }
-  __device__ __forceinline__ static int row(int k) {
-    return (threadIdx.x + k * NT) * V / 64;
-  }
-  __device__ __forceinline__ static int col(int k) {
-    return (threadIdx.x + k * NT) * V % 64;
-  }
-  // The tile as K-term bf16 tiles dst[t][i * LD + j]; consumes v.
-  template <int K>
-  __device__ __forceinline__ void store_terms(__nv_bfloat16* dst) {
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      __nv_bfloat16* d = dst + row(k) * LD + col(k);
-#pragma unroll
-      for (int t = 0; t < K; ++t) {
-        uint32_t w[V / 2];
-#pragma unroll
-        for (int e = 0; e < V / 2; ++e) {
-          const __nv_bfloat162 b = __floats2bfloat162_rn(v[k][2 * e],
-                                                         v[k][2 * e + 1]);
-          w[e] = *reinterpret_cast<const uint32_t*>(&b);
-          v[k][2 * e] -= __low2float(b);
-          v[k][2 * e + 1] -= __high2float(b);
-        }
-        if constexpr (V == 8)
-          *reinterpret_cast<uint4*>(d + t * ROWS * LD) =
-              make_uint4(w[0], w[1], w[2], w[3]);
-        else
-          *reinterpret_cast<uint2*>(d + t * ROWS * LD) =
-              make_uint2(w[0], w[1]);
-      }
-    }
-  }
 };
 
 // cum[i] = sum_{t <= i} dt_t A over the chunk's QM (zero-padded) steps,
@@ -207,50 +113,6 @@ __device__ void chunk_cumsum(double* cum, const float* dts, float A) {
 __device__ void load_dt(float* dts, const Params& p, int b, int h, int t0) {
   for (int i = threadIdx.x; i < QM; i += NT)
     dts[i] = i < p.Q ? p.dt[((size_t)b * p.S + t0 + i) * p.nh + h] : 0.0f;
-}
-
-// ldmatrix lane addresses (element offsets in an LD-strided tile): the
-// A fragment of rows r0..r0+15, cols c0..c0+15; two n8 B fragments whose
-// n runs along rows n0..n0+15 and k along cols c0..c0+15 (B^T stored
-// row-major); two n8 B fragments whose k runs along rows k0..k0+15 and n
-// along cols n0..n0+15 (B stored row-major, read with .trans).
-__device__ __forceinline__ int a_lane(int r0, int c0, int lane) {
-  return (r0 + (lane >> 3 & 1) * 8 + (lane & 7)) * LD + c0 + (lane >> 4) * 8;
-}
-__device__ __forceinline__ int bt_lane(int n0, int c0, int lane) {
-  return (n0 + (lane >> 4) * 8 + (lane & 7)) * LD + c0 + (lane >> 3 & 1) * 8;
-}
-__device__ __forceinline__ int b_lane(int k0, int n0, int lane) {
-  return (k0 + (lane >> 3 & 1) * 8 + (lane & 7)) * LD + n0 + (lane >> 4) * 8;
-}
-
-// The products of a k step are summed into a zeroed accumulator, smallest
-// terms first, which is then added to the running sum in fp32: the tensor
-// cores' rounding of a sum then applies to one k step's partial and not
-// to the running total.
-template <int R, int C>
-__device__ __forceinline__ void add_to(float (&acc)[R][C],
-                                       const float (&st)[R][C]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[r][c] += st[r][c];
-}
-
-// st (16 x 32) += the terms i <= imax of A (a[r][i], the 3-term fragments
-// of 16 x 16) times B (two x4 fragments of 16 x 16 each), smallest first.
-__device__ __forceinline__ void mma_terms(float (&st)[4][4],
-                                          const uint32_t (&a)[4][3],
-                                          const uint32_t (&bb)[2][4],
-                                          int imax) {
-#pragma unroll
-  for (int i = 2; i >= 0; --i) {
-    if (i > imax) continue;
-    const uint32_t ai[4] = {a[0][i], a[1][i], a[2][i], a[3][i]};
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-      mma_bf16(st[n], ai, bb[n / 2][(n % 2) * 2], bb[n / 2][(n % 2) * 2 + 1]);
-  }
 }
 
 // exp(cum_i - cum_j) for j <= i (an exponent <= 0), with cum as the float

@@ -6,14 +6,18 @@ plain C interface the first time a wrapper launches it, into
 and loaded with ctypes (`kernels/_build.py`). Nothing is built or loaded
 at import.
 
-Two entry points, one kernel (replacing `ensemble_fitness` and
-`ensemble_fitness_batched` of `repro/kernels/ensemble_fitness/kernel.py`):
+One kernel (replacing `ensemble_fitness` and `ensemble_fitness_batched`
+of `repro/kernels/ensemble_fitness/kernel.py`) writes both objectives of
+every row into one (N, P, 2) buffer:
 
+  Objectives(acc, S)        — acc (N, M) and S (N, M, M) checked once;
+                              each call on pop (N, P, M) is one launch
+                              and returns the (N, P, 2) objectives.
+  ensemble_fitness_batched  — pop (N, P, M), acc (N, M), S (N, M, M) ->
+                              the (strength, diversity) views.
   ensemble_fitness          — one client: pop (P, M), acc (M,), S (M, M).
-  ensemble_fitness_batched  — N clients in ONE launch: pop (N, P, M),
-                              acc (N, M), S (N, M, M).
 
-Both count their launches in `KERNEL.launches`.
+Every launch adds one to `KERNEL.launches`.
 """
 from __future__ import annotations
 
@@ -24,8 +28,9 @@ import torch
 from repro_torch.kernels._build import CudaLibrary, check_cuda, check_fp32
 
 KERNEL = CudaLibrary("ensemble_fitness.cu", "ensemble_fitness", {
-    "ensemble_fitness_launch": ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    "ensemble_fitness_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                                 + [ctypes.c_void_p], ctypes.c_int)})
+MAX_M = 29056        # M (index, value) pairs of one warp in shared memory
 
 
 def _check_shape(name, t, shape):
@@ -34,27 +39,54 @@ def _check_shape(name, t, shape):
                          f"{tuple(t.shape)}, expected {shape}")
 
 
+class Objectives:
+    """The fitness of populations against one batch of statistics: acc
+    (N, M) and S (N, M, M), fp32, contiguous on one CUDA device, checked
+    here once. Calling it on pop (N, P, M) (fp32, contiguous, on the same
+    device) launches the kernel once and returns the objectives (N, P, 2),
+    strength and diversity."""
+
+    def __init__(self, acc, S):
+        if acc.dim() != 2:
+            raise ValueError(f"ensemble_fitness: acc must be (N, M), got "
+                             f"shape {tuple(acc.shape)}")
+        self.N, self.M = acc.shape
+        _check_shape("S", S, (self.N, self.M, self.M))
+        check_fp32("ensemble_fitness", acc=acc, S=S)
+        check_cuda("ensemble_fitness", acc=acc, S=S)
+        if self.M > MAX_M:
+            raise ValueError(f"ensemble_fitness: supports M <= {MAX_M}, "
+                             f"got {self.M}")
+        self.acc, self.S = acc, S
+
+    def __call__(self, pop):
+        if pop.dim() != 3 or pop.shape[0] != self.N \
+                or pop.shape[2] != self.M:
+            raise ValueError(f"ensemble_fitness: pop has shape "
+                             f"{tuple(pop.shape)}, expected ({self.N}, P, "
+                             f"{self.M})")
+        check_fp32("ensemble_fitness", pop=pop)
+        check_cuda("ensemble_fitness", pop=pop, acc=self.acc)
+        N, P, M = pop.shape
+        out = torch.empty((N, P, 2), dtype=torch.float32, device=pop.device)
+        if N * P:
+            KERNEL.launch("ensemble_fitness_launch", pop.device,
+                          pop.data_ptr(), self.acc.data_ptr(),
+                          self.S.data_ptr(), out.data_ptr(), N, P, M,
+                          at=f"(N, P, M) = {(N, P, M)}")
+        return out
+
+
 def ensemble_fitness_batched(pop, acc, S):
     """pop (N, P, M) f32; acc (N, M); S (N, M, M), all contiguous on one
-    CUDA device -> (strength (N, P), diversity (N, P))."""
+    CUDA device -> (strength (N, P), diversity (N, P)), the two views of
+    one (N, P, 2) buffer."""
     if pop.dim() != 3:
         raise ValueError(f"ensemble_fitness_batched: pop must be (N, P, M), "
                          f"got shape {tuple(pop.shape)}")
-    N, P, M = pop.shape
-    _check_shape("acc", acc, (N, M))
-    _check_shape("S", S, (N, M, M))
-    check_fp32("ensemble_fitness", pop=pop, acc=acc, S=S)
-    check_cuda("ensemble_fitness", pop=pop, acc=acc, S=S)
-    strength = torch.empty((N, P), dtype=torch.float32, device=pop.device)
-    diversity = torch.empty((N, P), dtype=torch.float32, device=pop.device)
-    if N == 0 or P == 0:
-        return strength, diversity
-    diag = torch.diagonal(S, dim1=1, dim2=2).contiguous()
-    KERNEL.launch("ensemble_fitness_launch", pop.device, pop.data_ptr(),
-                  acc.data_ptr(), S.data_ptr(), diag.data_ptr(),
-                  strength.data_ptr(), diversity.data_ptr(), N, P, M,
-                  at=f"(N, P, M) = {(N, P, M)}")
-    return strength, diversity
+    _check_shape("acc", acc, (pop.shape[0], pop.shape[2]))
+    out = Objectives(acc, S)(pop)
+    return out[..., 0], out[..., 1]
 
 
 def ensemble_fitness(pop, acc, S):

@@ -190,3 +190,107 @@ def test_cuda_kernel_matches_plain_version(cuda_device, N, P, M):
     for g, w in zip(single, got):
         np.testing.assert_allclose(g.cpu().numpy(), w[0].cpu().numpy(),
                                    rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_objectives_fn_matches_pallas(jx, lead):
+    """ops.objectives_fn, what the selection scores every population with:
+    (..., P, 2) strength and diversity against statistics bound once, on
+    one client (P, M) or a client batch (N, P, M), as the reference's
+    Pallas kernels compute them (interpret mode)."""
+    rng = np.random.default_rng(11)
+    pop = _pop(rng, lead, 23, 12)
+    acc, S = _stats(rng, lead, 12)
+    got = tops.objectives_fn(_t(acc), _t(S))(_t(pop))
+    assert got.shape == lead + (23, 2)
+    fn = (jx.kernel.ensemble_fitness_batched if lead
+          else jx.kernel.ensemble_fitness)
+    want = fn(jx.jnp.asarray(pop), jx.jnp.asarray(acc), jx.jnp.asarray(S),
+              interpret=True)
+    for i, w in enumerate(want):
+        np.testing.assert_allclose(got[..., i].numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("bad", ["pop_cpu", "pop_shape", "pop_dtype",
+                                 "acc_shape", "S_shape"])
+def test_objectives_wrapper_raises(bad):
+    """The kernel's Objectives checks acc and S once and pop at every
+    call, and raises before any launch; nothing falls back."""
+    rng = np.random.default_rng(12)
+    pop = _t(_pop(rng, (2,), 6, 9))
+    acc, S = (_t(a) for a in _stats(rng, (2,), 9))
+    before = tkernel.KERNEL.launches
+    if bad in ("acc_shape", "S_shape"):
+        if bad == "acc_shape":
+            acc = acc[0]
+        else:
+            S = S[:, :4]
+        with pytest.raises(ValueError, match="shape"):
+            tkernel.Objectives(acc, S)
+    else:
+        # statistics that pass the checks: fake the CUDA test on them
+        obj = object.__new__(tkernel.Objectives)
+        obj.N, obj.M, obj.acc, obj.S = 2, 9, acc, S
+        if bad == "pop_shape":
+            pop = pop[:, :, :5]
+        elif bad == "pop_dtype":
+            pop = pop.double()
+        match = {"pop_cpu": "CUDA tensor", "pop_shape": "shape",
+                 "pop_dtype": "float32"}[bad]
+        with pytest.raises(ValueError, match=match):
+            obj(pop)
+    assert tkernel.KERNEL.launches == before
+
+
+def _gather_case(rng, case):
+    """(pop, acc, S) numpy inputs of the gather form's edge cases."""
+    if case == "non_binary":       # rows of arbitrary values, k = sum
+        N, P, M = 3, 40, 100
+        pop = (rng.random((N, P, M)) * (rng.random((N, P, M)) < 0.06)
+               ).astype(np.float32)
+        pop[:, ::4] *= -1.5
+    elif case == "zero_rows":
+        N, P, M = 2, 64, 100
+        pop = _pop(rng, (N,), P, M)
+        pop[:, ::2] = 0.0
+    elif case == "k1":
+        N, P, M = 2, 50, 100
+        pop = np.zeros((N, P, M), np.float32)
+        pop[:, np.arange(P), rng.integers(0, M, P)] = 1.0
+    elif case == "dense_320":
+        N, P, M = 3, 37, 320
+        pop = (rng.random((N, P, M)) < 0.5).astype(np.float32)
+    else:                          # ragged: N P not a multiple of 8 rows
+        N, P, M = 5, 13, 7
+        pop = _pop(rng, (N,), P, M)
+    return (pop,) + _stats(rng, (N,), M)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["non_binary", "zero_rows", "k1",
+                                  "dense_320", "ragged"])
+def test_cuda_gather_form_cases(cuda_device, case):
+    """The gather form against the plain version on rows it has to get
+    right beyond k = 5 ones: non-binary values, all-zero rows, k = 1,
+    dense rows at M = 320 and N P not a multiple of a block's 8 rows;
+    one launch a call, through both entry points and the objectives."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pop, acc, S = (_t(a).to(cuda_device) for a in
+                   _gather_case(np.random.default_rng(13), case))
+    want = tref.ensemble_fitness_batched_ref(pop, acc, S)
+    before = tkernel.KERNEL.launches
+    got = tops.ensemble_fitness_batched(pop, acc, S)
+    assert tkernel.KERNEL.launches == before + 1
+    objs = tops.objectives_fn(acc, S)(pop)
+    assert tkernel.KERNEL.launches == before + 2
+    single = tops.ensemble_fitness(pop[1], acc[1], S[1])
+    assert tkernel.KERNEL.launches == before + 3
+    torch.cuda.synchronize()
+    assert objs.shape == pop.shape[:2] + (2,)
+    for i, (g, w) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(objs[..., i].cpu().numpy(),
+                                      g.cpu().numpy())
+        np.testing.assert_allclose(single[i].cpu().numpy(),
+                                   w[1].cpu().numpy(), rtol=1e-5, atol=1e-5)
