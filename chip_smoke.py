@@ -5,8 +5,9 @@
 
 1. Device: the card's name and power limit (nvidia-smi), the torch
    device name and count.
-2. Build: compiles the four sources under `src/repro_torch/csrc/`
-   (ensemble_fitness, flash_attention, ssd_scan, wkv_scan) with nvcc for
+2. Build: compiles the five sources under `src/repro_torch/csrc/`
+   (ensemble_fitness, flash_attention, ssd_scan, wkv_scan and its
+   backward wkv_scan_bwd) with nvcc for
    sm_90a, one nvcc each, started together, and prints each build's
    seconds and ptxas register / shared-memory report.
 3. Kernel: both entry points of ensemble_fitness at the main path's
@@ -24,7 +25,9 @@
    with local training cut from 60 epochs to 2; selection scores every
    population through the kernel.
    The launch count is reset just before the run and must come out at
-   2 * generations + 1 per selection. One more selection under
+   2 * generations + 1 per selection. Two more selections of the same
+   engine state must give identical populations, objectives and winners
+   (is select() deterministic on the card?). One more selection under
    torch.profiler prints its kernel launches beside the 43055 that the
    dense-form kernel's run on this card counted, and beside those of the
    same selection through that version's per-call fitness wrapper (a
@@ -68,10 +71,37 @@
    the bf16 terms that keep fp32 accuracy (3 against an exact bf16
    operand, 6 for two fp32 factors), against the bytes; the count with
    the fp32 factors on the FMA units is printed beside it.
-7. Model check: the smoke rwkv6-3b and zamba2-7b in fp32, the same
+7. Kernel: the wkv_scan backward (wkv_scan_bwd, no TPU counterpart),
+   through ops.wkv_scan's autograd Function (one forward and one
+   backward launch), at (2, 512, 4, 64) in fp32 and bf16, at logw = -2
+   and -8 on every step and at a padded S = 100, each with a non-zero u,
+   an s0 and a gradient on s_T: dr, dk, dv, dlogw, du and ds0 held
+   against the plain backward (ref.wkv_scan_bwd_ref) to 1e-5 of each
+   gradient's max |g| (2**-7 for bf16 dr, dk, dv) and, at (2, 512, 4,
+   64), printed against torch.autograd of a float64 recurrence (fp32
+   within 1e-5); every gradient finite. At the training shapes, a
+   rwkv6-3b microbatch (2, 2048, 40, 64) and the whole batch (4, 2048,
+   40, 64), bf16, as a layer calls it (no s0, s_T unused: no d s_T, no
+   ds0): dr, dk, dv, dlogw and du held against the plain backward with
+   the same limits. At (4, 2048, 40, 64): timed in turns against the
+   plain backward, device time from torch.profiler, and the bound (bytes
+   of the function's inputs and outputs, against twice the forward's
+   least work).
+8. Model check: the smoke rwkv6-3b and zamba2-7b in fp32, the same
    weights on the card (kernels) and on the CPU (plain versions):
    prefill logits and states agree (atol 3e-4, rtol 1e-3).
-8. Serve, in turn: FedPAE soft-vote serving
+9. Train check: the smoke qwen2.5-3b and rwkv6-3b in fp32, from the
+   same parameters (drawn on the CPU, as train() draws them) and the same
+   TokenPipeline(seed=0) batches, on the card (rwkv6: both wkv kernels)
+   and on the CPU (plain versions): every parameter's gradient on the
+   first batch within 1e-4 of its max |g|, then 10 adamw steps of 4 x 64
+   tokens as train() takes them, whose losses agree within 1e-5
+   relative; the card's last loss is below its first; rwkv6-3b launches
+   wkv_scan twice (once more under the checkpoint's recompute) and
+   wkv_scan_bwd once a layer and pass. Then the rwkv6-3b card run once
+   more with a planted fault (the wkv backward's dk zeroed): the
+   gradient check must fail on it (its gaps are printed).
+10. Serve, in turn: FedPAE soft-vote serving
    (`launch/serve.py::serve_batch`) of two full-width members (bf16,
    random weights from seeds 0 and 1) of llama3-8b (attn_impl="pallas":
    flash_attention on every layer), rwkv6-3b (wkv_scan on every layer)
@@ -86,7 +116,16 @@
    its largest kernels) and of one decode step (with its launches), and
    for llama3-8b the pallas-vs-xla gap of member 0's last-position
    probabilities.
-9. Every share of bound printed (bound / time) must be <= 1.05: a
+11. Train, in turn: `train()` of qwen2.5-3b and rwkv6-3b at full width
+   and depth (bf16, random weights from seed 0), adamw (weight decay
+   0.01) and warmup_cosine, 6 steps of 4 x 2048 tokens from
+   TokenPipeline(seed=0) in 2 microbatches. The wkv counts are reset
+   just before each run: rwkv6-3b must launch wkv_scan 32 x 2 x 2 and
+   wkv_scan_bwd 32 x 2 times a step, 6 steps in all. Reports every loss
+   (all finite), step seconds (as train() returns them), tokens/s over
+   steps 2-6, peak device memory and the launches, then one more step
+   under torch.profiler by kernel.
+12. Every share of bound printed (bound / time) must be <= 1.05: a
    kernel faster than its bound means the bound is no floor. The shares,
    the `kernels` JSON line, then the result line.
 
@@ -98,6 +137,7 @@ from __future__ import annotations
 
 import copy
 import json
+import math
 import subprocess
 import sys
 from pathlib import Path
@@ -423,6 +463,7 @@ def slice_phase(torch):
     print(f"slice: final objectives vs plain version max abs err "
           f"{oerr:.3e}; front sizes {[int((r == 0).sum()) for r in ranks]}")
     check(oerr <= TOL, f"final objectives disagree: {oerr}")
+    select_determinism(exp.engine)
     profile_select(torch, exp.engine)
     return launches, n_select
 
@@ -952,6 +993,386 @@ def scan_phase(torch):
     return out
 
 
+WKV_GRADS = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+WKV_BWD_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}  # of each max |g|
+WKV_BWD_F32_TOL = 1e-5   # fp32 gradients (dlogw, du, ds0) in both dtypes
+WKV_BWD_CHECK = (2, 512, 4, 64)
+WKV_MB = (2, 2048, 40, 64)   # a rwkv6-3b training microbatch: 4 rows in 2
+
+
+def wkv_bwd_cost(B, S, nh, hd, elem_bytes):
+    """The backward's bytes and least work, as wkv_cost counts the
+    forward's: r, k, v and dy read and dr, dk, dv written in the
+    activation type, logw read and dlogw written in fp32, u and du (the
+    model's case: no s0, no gradient on s_T; the forward's chunk states
+    are the kernel's own choice and not counted). The least work is the
+    chunked form's backward: each product of the forward's least work
+    (wkv_cost) takes two products backward, so twice its FLOP, all with
+    fp32 factors."""
+    nbytes = (elem_bytes * 7 * B * S * nh * hd
+              + 4 * (2 * B * S * nh * hd + 2 * nh * hd))
+    flops = 2 * wkv_cost(B, S, nh, hd, elem_bytes, False)[False][1]
+    return {rate: (nbytes, flops, 0) for rate in (False, True)}
+
+
+def wkv_grads_float64(torch, r, k, v, logw, u, s0, dy, dsT):
+    """torch.autograd of the wkv recurrence in float64 on the card: the
+    gradients of sum(y dy) + sum(s_T dsT) with respect to r, k, v, logw,
+    u, s0."""
+    ins = [a.detach().double().requires_grad_() for a in
+           (r, k, v, logw, u, s0)]
+    rd, kd, vd, wd, ud, s = ins
+    ys = []
+    for t in range(rd.shape[1]):
+        rt, kt, vt = rd[:, t], kd[:, t], vd[:, t]
+        ys.append(torch.einsum("bhk,bhkv->bhv", rt, s)
+                  + (rt * ud * kt).sum(-1, keepdim=True) * vt)
+        s = s * wd[:, t].exp()[..., None] + kt[..., None] * vt[:, :, None]
+    loss = (torch.stack(ys, 1) * dy.double()).sum() \
+        + (s * dsT.double()).sum()
+    return torch.autograd.grad(loss, ins)
+
+
+def _grad_errs(got, want):
+    """Each gradient's max abs error over its largest |entry|."""
+    return {n: float((g.double() - w.double()).abs().max()
+                     / w.double().abs().max().clamp_min(1e-30))
+            for n, g, w in zip(WKV_GRADS, got, want) if w is not None}
+
+
+def _hold_grads(errs, dtype, what):
+    """dr, dk, dv within WKV_BWD_TOL of each max |g| in their dtype, the
+    fp32 gradients (dlogw, du, ds0 where given) within WKV_BWD_F32_TOL."""
+    check(all(errs[n] <= WKV_BWD_TOL[dtype] for n in WKV_GRADS[:3])
+          and all(e <= WKV_BWD_F32_TOL for n, e in errs.items()
+                  if n in WKV_GRADS[3:]),
+          f"wkv_scan_bwd at {what} disagrees with its plain version: {errs}")
+
+
+def wkv_bwd_phase(torch):
+    """The wkv_scan backward kernel against its plain version (and, at
+    the check shape, autograd of a float64 recurrence), through
+    ops.wkv_scan's autograd Function; timed at the training shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.wkv_scan import kernel as wk
+    from repro_torch.kernels.wkv_scan import ops as wo
+    from repro_torch.kernels.wkv_scan import ref as wr
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    cases = [(WKV_BWD_CHECK, d, None) for d in ("float32", "bfloat16")] + [
+        ((2, 256, 2, 64), "float32", -2.0),
+        ((2, 256, 2, 64), "float32", -8.0),
+        ((2, 256, 2, 64), "bfloat16", -8.0),
+        ((2, 100, 2, 32), "float32", None)]
+    for shape, dtype, lw in cases:
+        r, k, v, logw, u, s0 = wkv_case(torch, gen, *shape, dtype, True, lw)
+        dy = torch.randn(r.shape, generator=gen, device="cuda").to(r.dtype)
+        dsT = torch.randn(s0.shape, generator=gen, device="cuda")
+        ins = [a.clone().requires_grad_() for a in (r, k, v, logw, u, s0)]
+        fwd, bwd = wk.KERNEL.launches, wk.KERNEL_BWD.launches
+        y, sT = wo.wkv_scan(*ins)
+        got = torch.autograd.grad([y, sT], ins, [dy, dsT])
+        torch.cuda.synchronize()
+        check(wk.KERNEL.launches == fwd + 1
+              and wk.KERNEL_BWD.launches == bwd + 1,
+              f"wkv_scan_bwd at {shape} {dtype}: the forward and backward "
+              "kernels did not launch once each")
+        pad = (-shape[1]) % 64
+        p = [F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v, logw, dy)]
+        want = list(wr.wkv_scan_bwd_ref(*p[:4], u, s0, p[4], dsT))
+        want[:4] = [w[:, :shape[1]] for w in want[:4]]
+        errs = _grad_errs(got, want)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        line = (f"kernel wkv_scan_bwd {shape} {dtype}"
+                f"{'' if lw is None else f' logw = {lw}'}, s0 and d s_T: "
+                f"against the plain backward "
+                + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                + f" of each max |g|; finite {finite}")
+        if shape == WKV_BWD_CHECK:
+            e64 = _grad_errs(got, wkv_grads_float64(
+                torch, r, k, v, logw, u, s0, dy, dsT))
+            line += ("; against autograd of a float64 recurrence "
+                     + ", ".join(f"{n} {e:.3e}" for n, e in e64.items()))
+            if dtype == "float32":
+                check(max(e64.values()) <= WKV_BWD_F32_TOL,
+                      f"wkv_scan_bwd fp32 is {e64} from float64")
+        print(line)
+        check(finite, f"wkv_scan_bwd at {shape} {dtype} logw {lw}: "
+                      "non-finite gradients")
+        _hold_grads(errs, dtype, f"{shape} {dtype} logw {lw}")
+        out["err"] = max(out.get("err", 0.0), max(
+            float((g.float() - w.float()).abs().max())
+            for g, w in zip(got, want)))
+        del ins, y, sT, got, want, p
+    # the training shapes, as a layer calls the scan: bf16, no s0, and s_T
+    # unused, so the kernel gets no d s_T and makes no ds0
+    for shape in (WKV_MB, WKV_SLICE):
+        r, k, v, logw, u, _ = wkv_case(torch, gen, *shape, "bfloat16")
+        dy = torch.randn(r.shape, generator=gen, device="cuda").to(r.dtype)
+        ins = [a.clone().requires_grad_() for a in (r, k, v, logw, u)]
+        fwd, bwd = wk.KERNEL.launches, wk.KERNEL_BWD.launches
+        y, _ = wo.wkv_scan(*ins)
+        got = torch.autograd.grad(y, ins, dy)
+        torch.cuda.synchronize()
+        check(wk.KERNEL.launches == fwd + 1
+              and wk.KERNEL_BWD.launches == bwd + 1,
+              f"wkv_scan_bwd at {shape}: the forward and backward kernels "
+              "did not launch once each")
+        want = wr.wkv_scan_bwd_ref(r, k, v, logw, u, None, dy)
+        errs = _grad_errs(got, want)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        print(f"kernel wkv_scan_bwd {shape} bfloat16 as a layer calls it "
+              "(no s0, no d s_T): against the plain backward "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f" of each max |g|; finite {finite}")
+        check(finite, f"wkv_scan_bwd at {shape}: non-finite gradients")
+        _hold_grads(errs, "bfloat16", f"{shape} as a layer calls it")
+        out["err"] = max(out["err"], max(
+            float((g.float() - w.float()).abs().max())
+            for g, w in zip(got, want)))
+        del ins, y, got, want
+    # timed at WKV_SLICE on the last draw
+    _, _, states = wk.wkv_scan_fwd(r, k, v, logw, u)
+
+    def run_kernel():
+        return wk.wkv_scan_bwd(r, k, v, logw, u, states, dy, None,
+                               want_ds0=False)
+
+    def run_plain():
+        return wr.wkv_scan_bwd_ref(r, k, v, logw, u, None, dy)
+    p1, k1, k2, p2 = (time_ms(torch, fn, iters=it, warmup=1) for fn, it in
+                      ((run_plain, 1), (run_kernel, 10), (run_kernel, 10),
+                       (run_plain, 1)))
+    own_ms, _, n_rec, parts = device_ms(torch, run_kernel, iters=5,
+                                        name="wkv_scan_bwd")
+    counts = wkv_bwd_cost(*WKV_SLICE, 2)
+    b_ms, b_by = roofline(*counts[False], False, 2, TERMS_F32)
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    share(f"wkv_scan_bwd {WKV_SLICE}", b_ms, k_ms)
+    nbytes, flops, _ = counts[False]
+    print(f"  time wkv_scan_bwd {WKV_SLICE} bf16 (no s0, no d s_T): kernel "
+          f"{k_ms:.6f} ms ({k1:.6f}, {k2:.6f}), plain {p_ms:.6f} ms "
+          f"({p1:.6f}, {p2:.6f}) per call; on the device (profiler, "
+          f"{n_rec} launches recorded over 5 calls) {own_ms} ms a call; "
+          f"bound {b_ms:.6f} ms ({b_by}: {nbytes} bytes, {flops} "
+          f"fp32-factor FLOP at {TERMS_F32} bf16 products each), share "
+          f"{b_ms / k_ms:.4f}; no single PyTorch call computes this "
+          "function (library: none)")
+    for key, ms in parts.items():
+        print(f"    {ms:.6f} ms a launch  {key[:90]}")
+    out.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+               device_ms=own_ms)
+    del r, k, v, logw, u, dy, states
+    torch.cuda.empty_cache()
+    return out
+
+
+TRAIN_CHECK = {"steps": 10, "batch": 4, "seq": 64, "seed": 0, "lr": 3e-4}
+TRAIN_LOSS_RTOL = 1e-5     # card against CPU, fp32 smoke losses
+TRAIN_GRAD_TOL = 1e-4      # card against CPU, each parameter's first-step
+                           # gradient, of its max |g|
+TRAIN_FULL = {"steps": 6, "batch": 4, "seq": 2048, "microbatches": 2,
+              "seed": 0}
+TRAINS = ("qwen2.5-3b", "rwkv6-3b")
+
+
+def smoke_train(torch, arch, device):
+    """The smoke `arch` in fp32 on `device` from parameters drawn on the
+    CPU (as train() draws them): the first batch's gradients (on the
+    CPU, by name), then TRAIN_CHECK's adamw steps as train() takes them
+    (weight decay 0.01, warmup_cosine over 10 steps) on the same
+    TokenPipeline batches; returns (grads, losses)."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import cross_entropy
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    c = TRAIN_CHECK
+    cfg = get_smoke(arch).replace(dtype="float32")
+    params = tf.init_params(cfg, torch.Generator().manual_seed(c["seed"]))
+    params = params.to(device)
+    pipe = TokenPipeline(cfg.vocab, c["batch"], c["seq"], seed=c["seed"])
+    batches = [{k: torch.as_tensor(hb[k], device=device)
+                for k in ("tokens", "labels")}
+               for hb, _ in zip(pipe, range(c["steps"]))]
+    named = dict(params.named_parameters())
+    logits, _ = tf.forward(params, cfg, batches[0]["tokens"], mode="train")
+    loss = cross_entropy(logits, batches[0]["labels"],
+                         cfg.final_logit_softcap)
+    grads = {n: torch.zeros(p.shape) if g is None else g.detach().cpu()
+             for (n, p), g in zip(named.items(), torch.autograd.grad(
+                 loss, list(named.values()), allow_unused=True))}
+    opt = make_optimizer("adamw", weight_decay=0.01)
+    state = opt.init(named)
+    step_fn = steps_mod.make_train_step(cfg, opt, warmup_cosine(
+        c["lr"], warmup=max(10, c["steps"] // 20), total_steps=c["steps"]))
+    losses = [float(step_fn(params, state, b)) for b in batches]
+    return grads, losses
+
+
+def _train_gaps(card, cpu):
+    """(largest relative loss gap, largest gradient gap of its parameter's
+    max |g|, that parameter's name) between two smoke_train results."""
+    (g1, l1), (g2, l2) = card, cpu
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l1, l2))
+    gerr = {n: float((g1[n].double() - g2[n].double()).abs().max()
+                     / g2[n].double().abs().max().clamp_min(1e-30))
+            for n in g2}
+    worst = max(gerr, key=gerr.get)
+    return rel, gerr[worst], worst
+
+
+def _zero_dk(torch, wo):
+    """A planted fault: the wkv backward's dk replaced by zeros. Returns
+    the function that undoes it."""
+    orig = wo._WkvScan.backward
+
+    def backward(ctx, dy, dsT):
+        grads = list(orig(ctx, dy, dsT))
+        grads[1] = torch.zeros_like(grads[1])
+        return tuple(grads)
+    wo._WkvScan.backward = staticmethod(backward)
+    return lambda: setattr(wo._WkvScan, "backward", staticmethod(orig))
+
+
+def train_check_phase(torch):
+    """Smoke qwen2.5-3b and rwkv6-3b training in fp32, on the card (the
+    wkv kernels forward and backward) and on the CPU (plain versions)
+    from the same parameters and batches: first-step gradients and the
+    losses agree, the card's loss falls, and every rwkv6 layer's scan
+    went through both wkv kernels. Then the same card run with a planted
+    fault (the wkv backward's dk zeroed) must fail the gradient check."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.kernels.wkv_scan import kernel as wk
+    from repro_torch.kernels.wkv_scan import ops as wo
+    c = TRAIN_CHECK
+    for arch in TRAINS:
+        fwd, bwd = wk.KERNEL.launches, wk.KERNEL_BWD.launches
+        on_card = smoke_train(torch, arch, "cuda")
+        fwd, bwd = wk.KERNEL.launches - fwd, wk.KERNEL_BWD.launches - bwd
+        on_cpu = smoke_train(torch, arch, "cpu")
+        rel, gerr, worst = _train_gaps(on_card, on_cpu)
+        losses = on_card[1]
+        print(f"train check {arch} smoke fp32, {c}: card losses {losses}, "
+              f"CPU {on_cpu[1]}; max relative loss difference {rel:.3e} "
+              f"(limit {TRAIN_LOSS_RTOL}); largest first-step gradient "
+              f"difference {gerr:.3e} of its max |g| ({worst}; limit "
+              f"{TRAIN_GRAD_TOL}); wkv_scan launches {fwd}, wkv_scan_bwd "
+              f"{bwd}")
+        check(rel <= TRAIN_LOSS_RTOL, f"{arch}: card and CPU training "
+              f"losses differ by {rel} relative")
+        check(gerr <= TRAIN_GRAD_TOL, f"{arch}: card and CPU gradients of "
+              f"{worst} differ by {gerr} of its max |g|")
+        check(losses[-1] < losses[0], f"{arch}: the card's loss did not "
+              f"fall: {losses}")
+        cfg = get_smoke(arch)
+        if cfg.family == "ssm":   # one gradient pass and `steps` steps
+            per = cfg.n_layers * (c["steps"] + 1)
+            check(fwd == 2 * per and bwd == per, f"{arch}: wkv launches "
+                  f"{fwd} / {bwd}, expected {2 * per} / {per}")
+            undo = _zero_dk(torch, wo)
+            try:
+                f_rel, f_gerr, f_worst = _train_gaps(
+                    smoke_train(torch, arch, "cuda"), on_cpu)
+            finally:
+                undo()
+            print(f"train check {arch} with a planted fault (dk of the wkv "
+                  f"backward zeroed): loss difference {f_rel:.3e}, "
+                  f"gradient difference {f_gerr:.3e} ({f_worst})")
+            check(f_gerr > TRAIN_GRAD_TOL, f"{arch}: the gradient check "
+                  "did not see the planted fault")
+
+
+def full_train_phase(torch, arch):
+    """train() of `arch` at full width and depth on the card: adamw and
+    warmup_cosine, batch 4 x 2048 in 2 microbatches, 6 steps from seed
+    0; then one more step (a fresh adamw state) under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.wkv_scan import kernel as wk
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.train import scaled_config, train
+    from repro_torch.optim import make_optimizer, warmup_cosine
+    c = TRAIN_FULL
+    cfg = scaled_config(arch, "full")
+    print(f"train {arch} config:", json.dumps({"train": dict(c, arch=arch),
+          "model": {k: getattr(cfg, k) for k in (
+              "family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+              "head_dim", "d_ff", "vocab", "rwkv_head_dim", "attn_impl",
+              "attn_chunk", "dtype", "source")}}, allow_nan=False))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wk.KERNEL.launches = wk.KERNEL_BWD.launches = 0
+    params, losses, cfg, secs = train(
+        arch, "full", steps=c["steps"], batch=c["batch"], seq=c["seq"],
+        seed=c["seed"], microbatches=c["microbatches"], log_every=1,
+        device="cuda")
+    fwd, bwd = wk.KERNEL.launches, wk.KERNEL_BWD.launches
+    peak = torch.cuda.max_memory_allocated()
+    n_par = sum(p.numel() for p in params.parameters())
+    tok = c["batch"] * c["seq"]
+    later = secs[1:]
+    print(f"train {arch}: {n_par} parameters; losses {losses}; step "
+          f"seconds {secs}; steps 2-"
+          f"{c['steps']}: {sum(later) / len(later):.6f} s a step, "
+          f"{tok * len(later) / sum(later):.1f} tokens/s; peak device "
+          f"memory {peak} bytes ({peak / 2**30:.2f} GiB); wkv_scan / "
+          f"wkv_scan_bwd launches {fwd} / {bwd} in {c['steps']} steps")
+    check(all(map(math.isfinite, losses)),
+          f"{arch}: non-finite training losses {losses}")
+    n_mb = c["microbatches"]
+    if cfg.family == "ssm":
+        want = (2 * cfg.n_layers * n_mb, cfg.n_layers * n_mb)
+        check((fwd, bwd) == (c["steps"] * want[0], c["steps"] * want[1]),
+              f"{arch}: wkv launches {fwd} / {bwd} in {c['steps']} steps, "
+              f"expected {want} a step (n_layers x microbatches x 2 "
+              "forward, one under the checkpoint's recompute, and n_layers "
+              "x microbatches backward)")
+    # one more step under the profiler, by kernel name
+    opt = make_optimizer("adamw", weight_decay=0.01)
+    state = opt.init(dict(params.named_parameters()))
+    step_fn = steps_mod.make_train_step(cfg, opt, warmup_cosine(3e-4, 1, 2),
+                                        microbatches=n_mb)
+    hb = next(iter(TokenPipeline(cfg.vocab, c["batch"], c["seq"], seed=1)))
+    b = {k: torch.as_tensor(hb[k], device="cuda") for k in ("tokens",
+                                                            "labels")}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        float(step_fn(params, state, b))
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    print(f"train {arch}: one profiled step: device busy {busy:.6f} s, "
+          f"{sum(e.count for e in kernels)} kernel launches; by kernel:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:10.3f} ms  "
+              f"{e.count:6d} x  {e.key[:90]}")
+    del params, state, opt, step_fn, b, prof
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "bwd": bwd, "losses": losses}
+
+
+def select_determinism(engine):
+    """Two select() calls on the same engine state: identical
+    populations, objectives and winners for every client."""
+    import numpy as np
+    a, b = engine.select(), engine.select()
+    keys = ("pop", "objs", "chromosome")
+    differ = sorted(c for c in a if not all(
+        np.array_equal(a[c][k], b[c][k]) for k in keys))
+    gap = max(float(np.abs(a[c]["objs"] - b[c]["objs"]).max()) for c in a)
+    print(f"select() twice on the same state: populations, objectives and "
+          f"winners identical for {len(a) - len(differ)} of {len(a)} "
+          f"clients; differing clients {differ}; max objective gap {gap:.3e}")
+    check(not differ, f"select() is not deterministic on the card: clients "
+                      f"{differ} differ, objective gap {gap}")
+
+
 def _tree_err(a, b):
     """Largest |a - b| over matching tensors of two caches."""
     if isinstance(a, dict):
@@ -1117,7 +1538,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; device "
           f"{name!r}, count {count}")
     libs = [kernel.KERNEL, fa_kernel.KERNEL, ssd_kernel.KERNEL,
-            wkv_kernel.KERNEL]
+            wkv_kernel.KERNEL, wkv_kernel.KERNEL_BWD]
     build_all(libs)
     for lib in libs:
         built = "built" if lib.build_seconds is not None \
@@ -1133,9 +1554,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash = flash_phase(torch)[SLICE_SHAPE]
     scans = scan_phase(torch)
+    bwd = wkv_bwd_phase(torch)
     model_check_phase(torch)
+    train_check_phase(torch)
     served = {kname: serve_phase(torch, arch, overrides, kname)
               for arch, overrides, kname in SERVES}
+    trained = {arch: full_train_phase(torch, arch) for arch in TRAINS}
+    check(trained["rwkv6-3b"]["bwd"] > 0, "wkv_scan_bwd did not launch in "
+          "rwkv6-3b training")
 
     k_ms, p_ms, b_ms, b_by = timings[("batched", 32, 200, 100)]
     print(f"shares of bound (every one <= {SHARE_MAX}):",
@@ -1162,8 +1588,15 @@ def main() -> int:
         "plain_ms": scans[kname]["plain_ms"],
         "bound_ms": scans[kname]["bound_ms"],
         "bound_by": scans[kname]["bound_by"], "library_ms": None}
-        for kname, line in (("ssd_scan", 88), ("wkv_scan", 76))]},
-        allow_nan=False))
+        for kname, line in (("ssd_scan", 88), ("wkv_scan", 76))] + [{
+        "name": "wkv_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv_scan_bwd.cu",
+        "replaces": "src/repro/models/rwkv.py:64 (no TPU kernel: jax.grad "
+                    "of wkv_chunk_scan)",
+        "launches": trained["rwkv6-3b"]["bwd"], "max_abs_err": bwd["err"],
+        "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+        "library_ms": None}]}, allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}},
         allow_nan=False))

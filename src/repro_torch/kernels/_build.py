@@ -64,6 +64,19 @@ def check_cuda(kernel: str, strided: Sequence[str] = (), **tensors) -> None:
             raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
+def refuse_grad(kernel: str, **tensors) -> None:
+    """A kernel without a backward raises where autograd would need one:
+    grad mode on and an input that requires grad. It never detaches the
+    output silently and never falls back to its plain version."""
+    wanted = [n for n, t in tensors.items()
+              if t is not None and t.requires_grad]
+    if torch.is_grad_enabled() and wanted:
+        raise RuntimeError(
+            f"{kernel}: the backward of the CUDA kernel is not ported, and "
+            f"{', '.join(wanted)} require grad; run it under "
+            "torch.no_grad() or on CPU tensors (the plain version)")
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -14,7 +14,10 @@ Cross-attention (`kv_emb`) is not ported and raises.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
@@ -132,11 +135,16 @@ def attn_forward(p, cfg: ModelConfig, x, positions, window=0, kv_emb=None):
         return out.reshape(B, S, -1) @ p["wo"], (k, v)
     chunk = cfg.attn_chunk
     if chunk and S > chunk and S % chunk == 0:
-        out = torch.cat([
-            attn_core(q[:, i:i + chunk], k, v, positions[..., i:i + chunk],
-                      k_pos, window, cfg.attn_logit_softcap, True,
-                      g_major=g_major)
-            for i in range(0, S, chunk)], dim=1)
+        # As the reference (attention.py:140-146), each query chunk is
+        # checkpointed when a gradient may be taken: the backward then
+        # holds one chunk's fp32 scores instead of all of them.
+        def core(qc, pc):
+            return attn_core(qc, k, v, pc, k_pos, window,
+                             cfg.attn_logit_softcap, True, g_major=g_major)
+        if torch.is_grad_enabled():
+            core = functools.partial(checkpoint, core, use_reentrant=False)
+        out = torch.cat([core(q[:, i:i + chunk], positions[..., i:i + chunk])
+                         for i in range(0, S, chunk)], dim=1)
     else:
         out = attn_core(q, k, v, positions, k_pos, window,
                         cfg.attn_logit_softcap, True, g_major=g_major)

@@ -7,15 +7,20 @@ families, with three execution modes:
   decode  — one new token against the cache (serve step)
 
 The reference stacks the layers on a leading axis and runs a `lax.scan`;
-the port holds them in `nn.ModuleList`s and loops. The other families
-(moe, vlm, audio) are not ported and raise.
-`params_from_jax` loads the reference's parameter tree.
+the port holds them in `nn.ModuleList`s and loops. As the reference
+rematerialises every block in train mode (`jax.checkpoint` in
+`_scan_stack`), the port wraps each block in train mode, with grad on,
+in `torch.utils.checkpoint` (non-reentrant): the backward keeps a
+block's input and recomputes the rest. The other families (moe, vlm,
+audio) are not ported and raise. `params_from_jax` loads the
+reference's parameter tree and `params_to_jax` gives it back.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
 from . import rwkv as rwkv_mod
@@ -103,6 +108,12 @@ def ssm_block(p, cfg: ModelConfig, x, ctx, cache):
     return x + a, new_state
 
 
+def rwkv_block(p, cfg: ModelConfig, x, ctx, state):
+    if ctx["mode"] == "decode":
+        return rwkv_mod.rwkv_decode(p["rwkv"], cfg, x, state)
+    return rwkv_mod.rwkv_forward(p["rwkv"], cfg, x, state)
+
+
 def init_ssm_block(cfg: ModelConfig, gen: torch.Generator) -> Params:
     return Params({"ln": init_rms(cfg.d_model, gen.device),
                    "ssm": ssm_mod.init_ssm(cfg, gen)})
@@ -164,8 +175,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 
 def _leaf(a) -> torch.Tensor:
-    """A reference array (numpy, or bf16 through ml_dtypes) -> a CPU
+    """A reference array (numpy, or bf16 through ml_dtypes), or a tensor
+    as `params_to_jax` and `checkpoint.load_pytree` give them -> a CPU
     tensor of the same dtype; bf16 goes through fp32, which is exact."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().clone()
     a = np.asarray(a)
     dtype = torch.bfloat16 if a.dtype.name == "bfloat16" else \
         getattr(torch, a.dtype.name)
@@ -219,6 +233,42 @@ def params_from_jax(cfg: ModelConfig, params_np: dict) -> Params:
         p["shared_attn"] = _blocks(params_np["shared_attn"],
                                    cfg.n_shared_attn, "shared_attn")
     return Params(p)
+
+
+def _module_tree(m) -> dict:
+    return {name: _module_tree(c) for name, c in m.named_children()} | {
+        name: t.detach().cpu() for name, t in m.named_parameters(
+            recurse=False)}
+
+
+def _stacked(trees: list) -> dict:
+    """Same-structured trees -> one tree whose leaves are stacked on a
+    new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stacked([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def params_to_jax(cfg: ModelConfig, params) -> dict:
+    """The inverse of `params_from_jax`: a port module -> the reference's
+    nested parameter dict with the block axes stacked first (`layers`
+    (n_layers, ...); hybrid `m_main` (n_super, shared_attn_every, ...),
+    `m_tail`, `shared_attn`). Leaves are CPU tensors in the parameters'
+    dtypes (numpy has no bf16 of its own); `checkpoint.save_pytree`
+    writes them as the reference writes its arrays."""
+    _ported_only(cfg)
+    out = {"embed": _module_tree(params["embed"]),
+           "final_norm": params["final_norm"].detach().cpu()}
+    blocks = lambda ms: _stacked([_module_tree(m) for m in ms])  # noqa: E731
+    if cfg.family in ("dense", "ssm"):
+        out["layers"] = blocks(params["layers"])
+    else:
+        out["m_main"] = _stacked([blocks(s) for s in params["m_main"]])
+        if "m_tail" in params:
+            out["m_tail"] = blocks(params["m_tail"])
+        out["shared_attn"] = blocks(params["shared_attn"])
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
@@ -275,13 +325,23 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
            "cache_len": cache_len or (cfg.decode_window or S)}
     keep = mode in ("prefill", "decode")
     new_cache = None
+    remat = mode == "train" and torch.is_grad_enabled()
+
+    def run(block, p, x, c, state):
+        """block(p, cfg, x, c, state) -> (x, new state). In train mode
+        with grad on, under a non-reentrant checkpoint (the reference's
+        remat); the state it returns is not kept."""
+        if not remat:
+            return block(p, cfg, x, c, state)
+        return checkpoint(lambda h: block(p, cfg, h, c, state)[0], x,
+                          use_reentrant=False), None
     if cfg.family == "dense":
         windows = _layer_windows(cfg, x.device)
         kv_out = []
         for i, p_l in enumerate(params["layers"]):
             cache_l = cache["kv"][i] if cache is not None else None
-            x, kv = attn_mlp_block(p_l, cfg, x,
-                                   dict(ctx, window=windows[i]), cache_l)
+            x, kv = run(attn_mlp_block, p_l, x,
+                        dict(ctx, window=windows[i]), cache_l)
             kv_out.append(kv)
         if keep:
             new_cache = {"kv": kv_out}
@@ -289,10 +349,7 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
         st_out = []
         for i, p_l in enumerate(params["layers"]):
             cache_l = cache["state"][i] if cache is not None else None
-            if mode == "decode":
-                x, st = rwkv_mod.rwkv_decode(p_l["rwkv"], cfg, x, cache_l)
-            else:
-                x, st = rwkv_mod.rwkv_forward(p_l["rwkv"], cfg, x, cache_l)
+            x, st = run(rwkv_block, p_l, x, ctx, cache_l)
             st_out.append(st)
         if keep:
             new_cache = {"state": st_out}
@@ -307,19 +364,19 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
                 else [None] * len(p_s)
             outs = []
             for p_l, st in zip(p_s, states):
-                x, st = ssm_block(p_l, cfg, x, ctx, st)
+                x, st = run(ssm_block, p_l, x, ctx, st)
                 outs.append(st)
             m_out.append(outs)
             kv_l = cache["attn_kv"][i] if cache is not None else None
-            x, kv = attn_mlp_block(
-                params["shared_attn"][i % cfg.n_shared_attn], cfg, x,
-                dict(ctx, window=window), kv_l)
+            x, kv = run(attn_mlp_block,
+                        params["shared_attn"][i % cfg.n_shared_attn], x,
+                        dict(ctx, window=window), kv_l)
             kv_out.append(kv)
         tail_out = []
         for i, p_l in enumerate(params["m_tail"]
                                 if "m_tail" in params else []):
             st = cache["m_tail"][i] if cache is not None else None
-            x, st = ssm_block(p_l, cfg, x, ctx, st)
+            x, st = run(ssm_block, p_l, x, ctx, st)
             tail_out.append(st)
         if keep:
             new_cache = {"m_main": m_out, "attn_kv": kv_out}

@@ -1,1 +1,3 @@
-from .optimizers import make_optimizer, momentum, sgd  # noqa: F401
+from .optimizers import (adafactor, adamw, make_optimizer,  # noqa: F401
+                         momentum, sgd)
+from .schedules import constant, cosine, warmup_cosine  # noqa: F401

@@ -210,3 +210,21 @@ def test_cuda_ops_reads_split_heads_in_place(cuda_device):
     want = tref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                     v.transpose(1, 2)).transpose(1, 2)
     _close(got, want.float().cpu().numpy(), "bfloat16")
+
+
+@pytest.mark.cuda
+def test_cuda_ops_raises_under_grad(cuda_device):
+    """The kernel is forward-only, as the TPU kernel is: on CUDA tensors
+    that require grad, with grad mode on, ops.flash_attention raises and
+    launches nothing (no silent detach, no plain fallback); under
+    no_grad it launches."""
+    q, k, v = (np.swapaxes(a, 1, 2) for a in _qkv(6, 1, 4, 2, 64, 64, 64))
+    q, k, v = (_t(a, "bfloat16", cuda_device).contiguous() for a in (q, k, v))
+    k.requires_grad_()
+    before = tkernel.KERNEL.launches
+    with pytest.raises(RuntimeError, match="flash_attention: the backward"):
+        tops.flash_attention(q, k, v)
+    assert tkernel.KERNEL.launches == before
+    with torch.no_grad():
+        tops.flash_attention(q, k, v)
+    assert tkernel.KERNEL.launches == before + 1

@@ -1,7 +1,8 @@
 """The port stands alone: importing every `repro_torch` module, running
-a tiny synchronous slice and a tiny ensemble `serve_batch` of each ported
-model family (dense llama3-8b, ssm rwkv6-3b, hybrid zamba2-7b) on the CPU
-loads neither JAX nor any module of the reference package `repro`."""
+a tiny synchronous slice, a tiny ensemble `serve_batch` of each ported
+model family (dense llama3-8b, ssm rwkv6-3b, hybrid zamba2-7b) and two
+training steps of smoke qwen2.5-3b and rwkv6-3b with a checkpoint on the
+CPU loads neither JAX nor any module of the reference package `repro`."""
 import os
 import subprocess
 import sys
@@ -38,6 +39,13 @@ for arch, kw in (("llama3-8b", {"attn_impl": "pallas"}), ("rwkv6-3b", {}),
     toks = serve_batch(cfg, members, torch.zeros((2, 8), dtype=torch.int32),
                        gen_len=3)
     assert toks.shape == (2, 3)
+import tempfile
+from repro_torch.launch.train import train
+for arch in ("qwen2.5-3b", "rwkv6-3b"):
+    with tempfile.TemporaryDirectory() as ckpt:
+        _, losses, _, _ = train(arch, "smoke", steps=2, batch=2, seq=16,
+                                device="cpu", ckpt_dir=ckpt)
+    assert len(losses) == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))

@@ -9,7 +9,9 @@ tolerances (tests/test_kernels.py:96-97,116-117): y max abs error /
 max |y| < 1e-5, the final state atol = rtol = 1e-3. The torch copies of
 the models' chunked scans are held to theirs to 1e-5 relative. The
 `cuda` cases hold each CUDA kernel against its plain version on the card
-and skip elsewhere.
+and skip elsewhere. The plain wkv backward (`ref.wkv_scan_bwd_ref`) is
+held against torch.autograd of a float64 recurrence, and on the card the
+backward kernel against it.
 """
 from types import SimpleNamespace
 
@@ -410,6 +412,69 @@ def test_wkv_kernel_arithmetic_against_float64(dtype, logw):
     assert err < 1e-6, err
 
 
+def _wkv_grads_float64(r, k, v, logw, u, s0, dy, dsT):
+    """torch.autograd of the float64 recurrence (all batch rows): the
+    gradients of sum(y dy) + sum(s_T dsT) with respect to r, k, v, logw,
+    u and s0."""
+    ins = [a.detach().double().requires_grad_() for a in
+           (r, k, v, logw, u, s0)]
+    rd, kd, vd, wd, ud, s = ins
+    ys = []
+    for t in range(rd.shape[1]):
+        ys.append(torch.einsum("bhk,bhkv->bhv", rd[:, t], s)
+                  + (rd[:, t] * ud * kd[:, t]).sum(-1, keepdim=True)
+                  * vd[:, t])
+        s = s * torch.exp(wd[:, t])[..., None] \
+            + kd[:, t][..., None] * vd[:, t][:, :, None]
+    loss = (torch.stack(ys, 1) * dy.double()).sum() \
+        + (s * dsT.double()).sum()
+    return torch.autograd.grad(loss, ins)
+
+
+WKV_GRADS = ("dr", "dk", "dv", "dlogw", "du", "ds0")
+
+
+def _hold_grads(got, want, rel, what=""):
+    for name, g, w in zip(WKV_GRADS, got, want):
+        w = w.double().cpu()
+        err = float((g.double().cpu() - w).abs().max() / w.abs().max())
+        assert err < rel, (what, name, err)
+
+
+@pytest.mark.parametrize("logw", [None, -8.0])
+def test_wkv_bwd_ref_matches_float64_autograd(logw):
+    """The plain backward (the reverse recurrence written out) against
+    torch.autograd of the float64 recurrence, with a non-zero u, s0 and a
+    gradient on s_T: every gradient within 1e-6 of its largest entry
+    (fp32 sums over S = 96 steps), also at logw = -8 on every step."""
+    r, k, v, lw, u, s0 = _t(wkv_inputs(30, 2, 96, 3, 16, s0=True))
+    if logw is not None:
+        lw = torch.full_like(lw, logw)
+    rng = np.random.default_rng(31)
+    dy = torch.as_tensor(rng.standard_normal(r.shape).astype(np.float32))
+    dsT = torch.as_tensor(rng.standard_normal(s0.shape).astype(np.float32))
+    got = wref.wkv_scan_bwd_ref(r, k, v, lw, u, s0, dy, dsT)
+    assert [g.dtype for g in got] == [torch.float32] * 6
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _hold_grads(got, _wkv_grads_float64(r, k, v, lw, u, s0, dy, dsT), 1e-6)
+
+
+def test_wkv_ops_gradient_on_cpu_through_the_padding():
+    """On CPU tensors ops.wkv_scan is the plain forward, which autograd
+    differentiates: at S = 100, padded to 128, the gradients equal the
+    plain backward's on the unpadded inputs (the padded steps take
+    none)."""
+    r, k, v, lw, u, s0 = _t(wkv_inputs(32, 1, 100, 2, 8, s0=True))
+    rng = np.random.default_rng(33)
+    dy = torch.as_tensor(rng.standard_normal(r.shape).astype(np.float32))
+    dsT = torch.as_tensor(rng.standard_normal(s0.shape).astype(np.float32))
+    ins = [a.clone().requires_grad_() for a in (r, k, v, lw, u, s0)]
+    y, sT = wops.wkv_scan(*ins, chunk=64)
+    got = torch.autograd.grad((y * dy).sum() + (sT * dsT).sum(), ins)
+    want = wref.wkv_scan_bwd_ref(r, k, v, lw, u, s0, dy, dsT)
+    _hold_grads(got, want, 1e-5)
+
+
 @pytest.mark.parametrize("bad", ["cpu", "float16", "mixed", "dt_dtype",
                                  "hd", "chunk", "ragged", "shape"])
 def test_ssd_kernel_wrapper_raises(bad):
@@ -598,3 +663,63 @@ def test_cuda_ops_take_the_kernels_in_the_model_layout(cuda_device):
     before = wkernel.KERNEL.launches
     wops.wkv_scan(r, k, v, logw, u)
     assert wkernel.KERNEL.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,logw", [((2, 128, 2, 64), None),
+                                        ((1, 100, 2, 32), None),
+                                        ((2, 256, 3, 64), -8.0)])
+def test_cuda_wkv_gradient_takes_the_backward_kernel(cuda_device, shape,
+                                                     logw, dtype):
+    """On CUDA tensors that require grad ops.wkv_scan runs the forward
+    kernel inside its autograd Function and the backward kernel once
+    (no plain version): every gradient, with a non-zero u, s0 and a
+    gradient on s_T, agrees with the plain backward on the same inputs
+    (fp32: 1e-5 of each gradient's largest entry; bf16: one bf16 step at
+    the top of the range for dr, dk, dv, rounded to bf16, 1e-5 for the
+    fp32 dlogw, du and ds0) and is finite at logw = -8."""
+    dt = getattr(torch, dtype)
+    r, k, v, lw, u, s0 = _t(wkv_inputs(34, *shape, s0=True), cuda_device,
+                            dt, n_cast=3)
+    if logw is not None:
+        lw = torch.full_like(lw, logw)
+    rng = np.random.default_rng(35)
+    dy = torch.as_tensor(rng.standard_normal(r.shape).astype(np.float32),
+                         device=cuda_device).to(dt)
+    dsT = torch.as_tensor(rng.standard_normal(s0.shape).astype(np.float32),
+                          device=cuda_device)
+    ins = [a.clone().requires_grad_() for a in (r, k, v, lw, u, s0)]
+    fwd, bwd = wkernel.KERNEL.launches, wkernel.KERNEL_BWD.launches
+    y, sT = wops.wkv_scan(*ins)
+    assert y.grad_fn is not None and sT.grad_fn is not None
+    got = torch.autograd.grad([y, sT], ins, [dy, dsT])
+    torch.cuda.synchronize()
+    assert wkernel.KERNEL.launches == fwd + 1
+    assert wkernel.KERNEL_BWD.launches == bwd + 1
+    assert [g.dtype for g in got] == [dt] * 3 + [torch.float32] * 3
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    pad = (-shape[1]) % 64
+    padded = [torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+              for a in (r, k, v, lw, dy)]
+    want = wref.wkv_scan_bwd_ref(*padded[:4], u, s0, padded[4], dsT)
+    want = [w[:, :shape[1]] if i < 4 else w for i, w in enumerate(want)]
+    rel = 1e-5 if dtype == "float32" else BF16_Y_REL
+    _hold_grads(got[:3], want[:3], rel)
+    _hold_grads(got[3:], want[3:], 1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_raises_under_grad(cuda_device):
+    """ssd_scan has no backward kernel yet: on CUDA tensors that require
+    grad, with grad mode on, ops.ssd_scan raises and launches nothing;
+    under no_grad it launches."""
+    x, dt, A_log, B, C, D = _t(ssd_inputs(36, 1, 64, 2, 32, 16), cuda_device)
+    x.requires_grad_()
+    before = skernel.KERNEL.launches
+    with pytest.raises(RuntimeError, match="ssd_scan: the backward"):
+        sops.ssd_scan(x, dt, A_log, B, C, D)
+    assert skernel.KERNEL.launches == before
+    with torch.no_grad():
+        sops.ssd_scan(x, dt, A_log, B, C, D)
+    assert skernel.KERNEL.launches == before + 1
