@@ -83,10 +83,12 @@
    rwkv6-3b microbatch (2, 2048, 40, 64) and the whole batch (4, 2048,
    40, 64), bf16, as a layer calls it (no s0, s_T unused: no d s_T, no
    ds0): dr, dk, dv, dlogw and du held against the plain backward with
-   the same limits. At (4, 2048, 40, 64): timed in turns against the
-   plain backward, device time from torch.profiler, and the bound (bytes
-   of the function's inputs and outputs, against twice the forward's
-   least work).
+   the same limits. At (2, 2048, 40, 64) two calls must give bitwise
+   equal dr, dk, dv, dlogw and du. At both shapes: timed in turns
+   against the plain backward, device time from torch.profiler (a call
+   runs four kernels, wkv_scan_bwd_*; each one's time printed), and the
+   bound (bytes of the function's inputs and outputs, against twice the
+   forward's least work).
 8. Model check: the smoke rwkv6-3b and zamba2-7b in fp32, the same
    weights on the card (kernels) and on the CPU (plain versions):
    prefill logits and states agree (atol 3e-4, rtol 1e-3).
@@ -277,11 +279,11 @@ def device_ms(torch, fn, iters=50, name="ensemble_fitness_kernel"):
     """Device time from torch.profiler: (the kernels whose names hold
     `name`, per call; every kernel of the calls, per call; the number of
     their launches recorded; {kernel: its mean per recorded launch}),
-    times in ms, None where the profiler saw no device time. A call runs each kernel of `name` once (ssd_scan runs
-    four, wkv_scan three), so a call's time is the sum over those kernels
-    of each one's
-    mean per recorded launch: the profiler may drop records of long
-    kernels on this machine, and this sum equals the total over the
+    times in ms, None where the profiler saw no device time. A call runs
+    each kernel of `name` once (ssd_scan and wkv_scan_bwd run four,
+    wkv_scan three), so a call's time is the sum over those kernels of
+    each one's mean per recorded launch: the profiler may drop records of
+    long kernels on this machine, and this sum equals the total over the
     calls divided by the calls when it drops none."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1107,9 +1109,11 @@ def wkv_bwd_phase(torch):
         del ins, y, sT, got, want, p
     # the training shapes, as a layer calls the scan: bf16, no s0, and s_T
     # unused, so the kernel gets no d s_T and makes no ds0
+    draws = {}
     for shape in (WKV_MB, WKV_SLICE):
         r, k, v, logw, u, _ = wkv_case(torch, gen, *shape, "bfloat16")
         dy = torch.randn(r.shape, generator=gen, device="cuda").to(r.dtype)
+        draws[shape] = (r, k, v, logw, u, dy)
         ins = [a.clone().requires_grad_() for a in (r, k, v, logw, u)]
         fwd, bwd = wk.KERNEL.launches, wk.KERNEL_BWD.launches
         y, _ = wo.wkv_scan(*ins)
@@ -1132,39 +1136,52 @@ def wkv_bwd_phase(torch):
             float((g.float() - w.float()).abs().max())
             for g, w in zip(got, want)))
         del ins, y, got, want
-    # timed at WKV_SLICE on the last draw
-    _, _, states = wk.wkv_scan_fwd(r, k, v, logw, u)
+    # timed at both training shapes on their draws, in turns against the
+    # plain backward; at WKV_MB two calls must give the same bits
+    for shape in (WKV_MB, WKV_SLICE):
+        r, k, v, logw, u, dy = draws.pop(shape)
+        _, _, states = wk.wkv_scan_fwd(r, k, v, logw, u)
 
-    def run_kernel():
-        return wk.wkv_scan_bwd(r, k, v, logw, u, states, dy, None,
-                               want_ds0=False)
+        def run_kernel():
+            return wk.wkv_scan_bwd(r, k, v, logw, u, states, dy, None,
+                                   want_ds0=False)
 
-    def run_plain():
-        return wr.wkv_scan_bwd_ref(r, k, v, logw, u, None, dy)
-    p1, k1, k2, p2 = (time_ms(torch, fn, iters=it, warmup=1) for fn, it in
-                      ((run_plain, 1), (run_kernel, 10), (run_kernel, 10),
-                       (run_plain, 1)))
-    own_ms, _, n_rec, parts = device_ms(torch, run_kernel, iters=5,
-                                        name="wkv_scan_bwd")
-    counts = wkv_bwd_cost(*WKV_SLICE, 2)
-    b_ms, b_by = roofline(*counts[False], False, 2, TERMS_F32)
-    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    share(f"wkv_scan_bwd {WKV_SLICE}", b_ms, k_ms)
-    nbytes, flops, _ = counts[False]
-    print(f"  time wkv_scan_bwd {WKV_SLICE} bf16 (no s0, no d s_T): kernel "
-          f"{k_ms:.6f} ms ({k1:.6f}, {k2:.6f}), plain {p_ms:.6f} ms "
-          f"({p1:.6f}, {p2:.6f}) per call; on the device (profiler, "
-          f"{n_rec} launches recorded over 5 calls) {own_ms} ms a call; "
-          f"bound {b_ms:.6f} ms ({b_by}: {nbytes} bytes, {flops} "
-          f"fp32-factor FLOP at {TERMS_F32} bf16 products each), share "
-          f"{b_ms / k_ms:.4f}; no single PyTorch call computes this "
-          "function (library: none)")
-    for key, ms in parts.items():
-        print(f"    {ms:.6f} ms a launch  {key[:90]}")
-    out.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-               device_ms=own_ms)
-    del r, k, v, logw, u, dy, states
-    torch.cuda.empty_cache()
+        def run_plain():
+            return wr.wkv_scan_bwd_ref(r, k, v, logw, u, None, dy)
+        if shape == WKV_MB:
+            first, second = run_kernel()[:5], run_kernel()[:5]
+            same = [n for n, a, b in zip(WKV_GRADS, first, second)
+                    if torch.equal(a, b)]
+            print(f"kernel wkv_scan_bwd {shape}: two calls bitwise equal in "
+                  f"{same} of {list(WKV_GRADS[:5])}")
+            check(len(same) == 5, f"wkv_scan_bwd at {shape} is not "
+                  f"deterministic: only {same} agree bitwise")
+            del first, second
+        p1, k1, k2, p2 = (time_ms(torch, fn, iters=it, warmup=1)
+                          for fn, it in ((run_plain, 1), (run_kernel, 10),
+                                         (run_kernel, 10), (run_plain, 1)))
+        own_ms, _, n_rec, parts = device_ms(torch, run_kernel, iters=5,
+                                            name="wkv_scan_bwd")
+        counts = wkv_bwd_cost(*shape, 2)
+        b_ms, b_by = roofline(*counts[False], False, 2, TERMS_F32)
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        share(f"wkv_scan_bwd {shape}", b_ms, k_ms)
+        nbytes, flops, _ = counts[False]
+        print(f"  time wkv_scan_bwd {shape} bf16 (no s0, no d s_T): kernel "
+              f"{k_ms:.6f} ms ({k1:.6f}, {k2:.6f}), plain {p_ms:.6f} ms "
+              f"({p1:.6f}, {p2:.6f}) per call; on the device (profiler, "
+              f"{n_rec} launches recorded over 5 calls) {own_ms} ms a call; "
+              f"bound {b_ms:.6f} ms ({b_by}: {nbytes} bytes, {flops} "
+              f"fp32-factor FLOP at {TERMS_F32} bf16 products each), share "
+              f"{b_ms / k_ms:.4f}; no single PyTorch call computes this "
+              "function (library: none)")
+        for key, ms in parts.items():
+            print(f"    {ms:.6f} ms a launch  {key[:90]}")
+        if shape == WKV_SLICE:
+            out.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                       device_ms=own_ms)
+        del r, k, v, logw, u, dy, states
+        torch.cuda.empty_cache()
     return out
 
 

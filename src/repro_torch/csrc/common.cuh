@@ -4,7 +4,9 @@
 // bf16 packing, mma.sync and ldmatrix for the kernels that use them; and
 // the scans' tensor-core toolkit (ssd_scan.cu, wkv_scan.cu): fp32 factors
 // split into bf16 terms, a tile loader that keeps its 16-byte loads in
-// flight, ldmatrix lane addresses and term-by-term products.
+// flight, ldmatrix lane addresses and term-by-term products; and, in
+// namespace wkv, what the wkv scan and its backward share (per-channel
+// step loads, cumsums in double, a scattered warp reduction).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -229,3 +231,79 @@ __device__ __forceinline__ void mma_terms(float (&st)[4][4],
       mma_bf16(st[n], ai, bb[n / 2][(n % 2) * 2], bb[n / 2][(n % 2) * 2 + 1]);
   }
 }
+
+// ---- What both wkv scans share (wkv_scan.cu and its backward) ----
+namespace wkv {
+
+constexpr int NT = 256;                  // threads a block: 8 warps
+constexpr int QM = 64, HM = 64;          // chunk and hd maxima
+constexpr int SB = 16, NSB = QM / SB;    // sub-blocks of a chunk
+
+// Thread (c, I) = (tid % 64, tid / 64) owns channel c of sub-block I
+// (steps 16 I .. 16 I + 15 of the chunk): its logw and, for each of `n`
+// more tensors, its values, 0 past Q and past hd. Every load is issued
+// before any is used. P is a kernel's Params (logw, nh, hd, Q).
+template <typename T, int N, typename P>
+__device__ __forceinline__ void own_steps(const P& p, size_t base,
+                                          const T* const (&src)[N],
+                                          float (&w)[SB],
+                                          float (&vals)[N][SB]) {
+  const int c = threadIdx.x % HM, I = threadIdx.x / HM;
+  const size_t row = (size_t)p.nh * p.hd;
+#pragma unroll
+  for (int s = 0; s < SB; ++s) {
+    const int i = I * SB + s;
+    const bool in = c < p.hd && i < p.Q;
+    const size_t off = base + (size_t)(in ? i : 0) * row + (in ? c : 0);
+    w[s] = in ? p.logw[off] : 0.0f;
+#pragma unroll
+    for (int n = 0; n < N; ++n) vals[n][s] = in ? load(src[n], off) : 0.0f;
+  }
+}
+
+// L[s] = logw summed over the sub-block's steps 0..s, in double.
+__device__ __forceinline__ void local_cumsum(const float (&w)[SB],
+                                             double (&L)[SB]) {
+  double run = 0.0;
+#pragma unroll
+  for (int s = 0; s < SB; ++s) {
+    run += (double)w[s];
+    L[s] = run;
+  }
+}
+
+// One level of warp_reduce_scatter: lanes whose bit `32 W / N` is set
+// keep v[W..2W) and send v[0..W), the others the reverse, then the next
+// level on the W they kept. W is a template constant, so that every index
+// of v is one: with a loop bound that changes by level, nvcc leaves the
+// loop rolled and indexes v through chains of predicated moves.
+template <int W, int N>
+__device__ __forceinline__ void reduce_level(float (&v)[N], int lane) {
+  if constexpr (W >= 1) {
+    constexpr int off = 32 * W / N;
+    const bool up = lane & off;
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      const float send = up ? v[q] : v[q + W];
+      const float keep = up ? v[q + W] : v[q];
+      v[q] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+    reduce_level<W / 2, N>(v, lane);
+  }
+}
+
+// Sums v over the warp's 32 lanes, scattered: lane l returns the total of
+// v[(l >> (5 - log2 N)) & (N - 1)] (N a power of two, at most 16), with
+// N - 1 + 5 - log2 N shuffles instead of 5 N.
+template <int N>
+__device__ __forceinline__ float warp_reduce_scatter(float (&v)[N]) {
+  static_assert(N >= 1 && N <= 16 && (N & (N - 1)) == 0,
+                "N a power of two, at most 16");
+  reduce_level<N / 2, N>(v, threadIdx.x % 32);
+#pragma unroll
+  for (int off = 16 / N; off >= 1; off /= 2)
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+  return v[0];
+}
+
+}  // namespace wkv

@@ -89,9 +89,7 @@
 
 namespace {
 
-constexpr int NT = 256;                  // threads a block: 8 warps
-constexpr int QM = 64, HM = 64;          // chunk and hd maxima
-constexpr int SB = 16, NSB = QM / SB;    // sub-blocks of a chunk
+using namespace wkv;   // NT, QM, HM, SB, NSB and the scans' helpers
 constexpr int FLD = 72;   // fp32 rows read as float2 fragment pairs
 constexpr int HLD = 68;   // fp32 rows read a column at a time
 constexpr int LLD = 65;   // the cumsums, read a row per lane
@@ -115,28 +113,6 @@ struct Params {
 // conflicts in the diagonal loop.
 template <typename T>
 __host__ __device__ constexpr int raw_ld() { return sizeof(T) == 2 ? 66 : 65; }
-
-// Thread (c, I) = (tid % 64, tid / 64) owns channel c of sub-block I
-// (steps 16 I .. 16 I + 15 of the chunk): its logw and, for each of `n`
-// more tensors, its values, 0 past Q and past hd. Every load is issued
-// before any is used.
-template <typename T, int N>
-__device__ __forceinline__ void own_steps(const Params& p, size_t base,
-                                          const T* const (&src)[N],
-                                          float (&w)[SB],
-                                          float (&vals)[N][SB]) {
-  const int c = threadIdx.x % HM, I = threadIdx.x / HM;
-  const size_t row = (size_t)p.nh * p.hd;
-#pragma unroll
-  for (int s = 0; s < SB; ++s) {
-    const int i = I * SB + s;
-    const bool in = c < p.hd && i < p.Q;
-    const size_t off = base + (size_t)(in ? i : 0) * row + (in ? c : 0);
-    w[s] = in ? p.logw[off] : 0.0f;
-#pragma unroll
-    for (int n = 0; n < N; ++n) vals[n][s] = in ? load(src[n], off) : 0.0f;
-  }
-}
 
 // L2 prefetches of what the block `p.ahead` blocks later in launch order
 // reads: blocks start in order, so that one starts about a wave later and
@@ -172,17 +148,6 @@ __device__ __forceinline__ void prefetch_ahead(const Params& p,
   if (state)
     rows(p.states + (((size_t)b * p.nh + h) * p.nc + ch) * p.hd * p.hd, 1,
          p.hd * p.hd * 4, 0);
-}
-
-// L[s] = logw summed over the sub-block's steps 0..s, in double.
-__device__ __forceinline__ void local_cumsum(const float (&w)[SB],
-                                             double (&L)[SB]) {
-  double run = 0.0;
-#pragma unroll
-  for (int s = 0; s < SB; ++s) {
-    run += (double)w[s];
-    L[s] = run;
-  }
 }
 
 // 1. The chunk state s_c = sum_j (k_j e^{E_{Q-1} - E_j})^T v_j of one
@@ -334,28 +299,6 @@ __global__ void __launch_bounds__(NT) wkv_scan_pass(Params p) {
     }
   }
   for (int e = 0; e < m; ++e) p.sT[bh * n + e0 + e] = h[e];
-}
-
-// Sums v over the warp's 32 lanes, scattered: lane l returns the total of
-// v[(l >> (5 - log2 N)) & (N - 1)] (N a power of two, at most 16), with
-// N - 1 + 5 - log2 N shuffles instead of 5 N.
-template <int N>
-__device__ __forceinline__ float warp_reduce_scatter(float (&v)[N]) {
-  const int lane = threadIdx.x % 32;
-  int off = 16;
-#pragma unroll
-  for (int w = N / 2; w >= 1; w /= 2, off /= 2) {
-    const bool up = lane & off;
-#pragma unroll
-    for (int q = 0; q < w; ++q) {
-      const float send = up ? v[q] : v[q + w];
-      const float keep = up ? v[q + w] : v[q];
-      v[q] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-    }
-  }
-#pragma unroll
-  for (; off >= 1; off /= 2) v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
-  return v[0];
 }
 
 // A of one full 4 x 4 micro-tile (rows i0.., columns j0.., j0 + 3 < i0)

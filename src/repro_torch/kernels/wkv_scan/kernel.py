@@ -8,7 +8,9 @@ is built with nvcc for sm_90a at first launch through
 adds one to `KERNEL.launches`, however many of the source's kernels it
 runs (three: chunk states, the state pass, chunk outputs). The backward
 has no TPU counterpart (the reference takes jax.grad of its jnp scan); it
-is its own library with its own count, `KERNEL_BWD.launches`.
+is its own library with its own count, `KERNEL_BWD.launches`, one a call
+of its four kernels (the r side and the gradient's chunk states, the
+reverse state pass, the k and v sides and dlogw, du's fixed-order sum).
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ KERNEL = CudaLibrary("wkv_scan.cu", "wkv_scan", {
     "wkv_scan_launch": ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                         + [ctypes.c_void_p], ctypes.c_int)})
 KERNEL_BWD = CudaLibrary("wkv_scan_bwd.cu", "wkv_scan_bwd", {
-    "wkv_scan_bwd_launch": ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+    "wkv_scan_bwd_launch": ([ctypes.c_void_p] * 17 + [ctypes.c_int] * 6
                             + [ctypes.c_void_p], ctypes.c_int)})
 CHUNK = 64           # the TPU kernel's chunk; also the largest supported
 MAX_HD = 64
@@ -95,7 +97,9 @@ def wkv_scan_bwd(r, k, v, logw, u, states, dy, dsT=None, *, chunk=CHUNK,
     `wkv_scan_fwd` returned for the same inputs and chunk; dsT (B, nh,
     hd, hd) fp32 or None (zeros). Returns (dr, dk, dv of r's dtype, dlogw
     fp32, du (nh, hd) fp32, ds0 fp32 or None unless `want_ds0`). One
-    launch (one count of `KERNEL_BWD`)."""
+    launch (one count of `KERNEL_BWD`) runs the source's four kernels on
+    the fp32 scratch allocated here: the gradient's chunk states, the
+    chunks' decays and du's partials; the same inputs give the same bits."""
     Q, code = _check(r, k, v, logw, u, dsT, chunk)
     B, S, nh, hd = r.shape
     if dy.shape != r.shape or dy.dtype != r.dtype:
@@ -108,20 +112,24 @@ def wkv_scan_bwd(r, k, v, logw, u, states, dy, dsT=None, *, chunk=CHUNK,
     check_fp32("wkv_scan_bwd", states=states)
     check_cuda("wkv_scan_bwd", r=r, dy=dy, states=states)
     f32 = dict(dtype=torch.float32, device=r.device)
-    dr, dk = torch.empty_like(r), torch.empty_like(r)
-    dv = torch.zeros(r.shape, **f32)
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
     dlogw = torch.empty(r.shape, **f32)
     du = torch.zeros((nh, hd), **f32)
     ds0 = torch.empty((B, nh, hd, hd), **f32) if want_ds0 else None
     if B * nh:
+        nc = S // Q
+        dstate = torch.empty((B, nh, nc, hd, hd), **f32)
+        decay = torch.empty((B, nh, nc, hd), **f32)
+        dupart = torch.empty((B, nc, nh, hd), **f32)
         KERNEL_BWD.launch(
             "wkv_scan_bwd_launch", r.device, r.data_ptr(), k.data_ptr(),
             v.data_ptr(), dy.data_ptr(), logw.data_ptr(), u.data_ptr(),
             states.data_ptr(), None if dsT is None else dsT.data_ptr(),
             dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dlogw.data_ptr(),
-            du.data_ptr(), None if ds0 is None else ds0.data_ptr(), code, B,
+            du.data_ptr(), None if ds0 is None else ds0.data_ptr(),
+            dstate.data_ptr(), decay.data_ptr(), dupart.data_ptr(), code, B,
             S, nh, hd, Q,
             at=f"(B, S, nh, hd, Q) = {(B, S, nh, hd, Q)}, {r.dtype}")
     elif ds0 is not None:
         ds0 = torch.zeros_like(ds0) if dsT is None else dsT.clone()
-    return dr, dk, dv.to(r.dtype), dlogw, du, ds0
+    return dr, dk, dv, dlogw, du, ds0

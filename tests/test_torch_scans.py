@@ -299,7 +299,7 @@ def test_ssd_kernel_arithmetic_against_float64(dtype):
     assert err < 1e-6, err
 
 
-def _wkv_emulated(r, k, v, logw, u, s0, n_in, Q=64, SB=16):
+def _wkv_emulated(r, k, v, logw, u, s0, n_in, Q=64, SB=16, states=False):
     """The CUDA wkv_scan's arithmetic in float32 torch on one batch row:
     the chunk states, the sequential state pass and the chunk outputs,
     with cumsums in double, local to sub-blocks of SB steps; A's
@@ -310,7 +310,9 @@ def _wkv_emulated(r, k, v, logw, u, s0, n_in, Q=64, SB=16):
     exp a term, from the cumsums as a float pair hi + lo; A v with v in n_in terms (1:
     bf16 inputs, exact; 3: fp32) and (r e^{E_{i-1}}) h_{c-1} with both in
     3. r, k, v, logw (S, nh, hd), u (nh, hd), s0 (nh, hd, hd) -> y (S,
-    nh, hd) before the output rounding."""
+    nh, hd) before the output rounding; with `states`, also the states
+    entering the chunks (nh, nc, hd, hd) and s_T (nh, hd, hd), the
+    forward kernel's scratch and output."""
     S, nh, hd = r.shape
     nc, nsb = S // Q, Q // SB
 
@@ -372,7 +374,8 @@ def _wkv_emulated(r, k, v, logw, u, s0, n_in, Q=64, SB=16):
     bonus = flat(rc * u[:, None, None, None, :] * kc).sum(-1)
     y = _mm_terms(A, vq, 3, n_in) + bonus[..., None] * vq + _mm_terms(
         flat(RR * Eb[..., None, :]), hp, 3, 3)
-    return y.permute(1, 2, 0, 3).reshape(S, nh, hd)
+    y = y.permute(1, 2, 0, 3).reshape(S, nh, hd)
+    return (y, hp, h) if states else y
 
 
 def _wkv_float64(r, k, v, logw, u, s0):
@@ -473,6 +476,179 @@ def test_wkv_ops_gradient_on_cpu_through_the_padding():
     got = torch.autograd.grad((y * dy).sum() + (sT * dsT).sum(), ins)
     want = wref.wkv_scan_bwd_ref(r, k, v, lw, u, s0, dy, dsT)
     _hold_grads(got, want, 1e-5)
+
+
+def _wkv_bwd_emulated(r, k, v, logw, u, s0, dy, dsT, n_in, Q=64, SB=16,
+                      split=True):
+    """The arithmetic of the CUDA wkv_scan backward's four kernels in
+    float32 torch on one batch row, from the forward's chunk states
+    (`_wkv_emulated`): cumsums in double, local to sub-blocks of SB steps;
+    M = dy v^T; the sub-block pairs of dr's and dk's sums and of A rebased
+    so that no factor exceeds 1, with both fp32 factors split into 3 bf16
+    terms (dy and v in n_in: 1 for bf16 inputs, exact; 3 for fp32); the
+    diagonal sub-blocks per channel, e^{E_{i-1}-E_j} as the running product
+    of the w between; the neighbours (i = j + 1) kept out of the sums that
+    make dlogw and added to dr and dk apart; the gradient's chunk states,
+    the reverse pass over chunks; dk, dv; dlogw as suffix sums of r dr' -
+    k dk', prefix sums of the d s_T side and e^{E_{Q-1}} rowsum(dH_c
+    h_{c-1}), all local to the chunk. `split=False` takes every product in
+    plain float32 (the chunked algebra alone). r, k, v, logw, dy (S, nh,
+    hd), u (nh, hd), s0, dsT (nh, hd, hd) -> [dr, dk, dv, dlogw (S, nh,
+    hd), du (nh, hd), ds0 (nh, hd, hd)] before any output rounding."""
+    S, nh, hd = r.shape
+    nc, nsb = S // Q, Q // SB
+    mm = _mm_terms if split else (lambda a, b, na, nb: a @ b)
+    _, hp, sT = _wkv_emulated(r, k, v, logw, u, s0, n_in, Q, SB,
+                                states=True)
+
+    def blocks(a):                               # (nh, nc, nsb, SB, hd)
+        return a.reshape(nc, nsb, SB, nh, hd).permute(3, 0, 1, 2, 4)
+    flat = lambda a: a.reshape(nh, nc, Q, hd)    # noqa: E731
+    sub = lambda a: a.reshape(nh, nc, nsb, SB, a.shape[-1])  # noqa: E731
+    rc, kc, vc, dyc, wc = (blocks(a) for a in (r, k, v, dy, logw))
+    L = torch.cumsum(wc.double(), 3)             # inclusive, per sub-block
+    tot = L[..., -1, :]                          # (nh, nc, nsb, hd)
+    Lprev = torch.cat([torch.zeros_like(L[..., :1, :]), L[..., :-1, :]], 3)
+    before = tot.cumsum(2) - tot                 # E_{b(I)-1}
+    after = tot.flip(2).cumsum(2).flip(2) - tot  # E_{Q-1} - E_{e(J)}
+    Fr = torch.exp(Lprev.float())                # e^{E_{i-1} - E_{b(I)-1}}
+    Fk = torch.exp((L[..., -1:, :] - L).float())  # e^{E_{e(J)} - E_j}
+    Eb, Ea = torch.exp(before.float()), torch.exp(after.float())
+    decay = torch.exp(tot.sum(2).float())        # (nh, nc, hd)
+
+    def g(I, J):                                 # e^{E_{b(I)-1} - E_{e(J)}}
+        return torch.exp(tot[:, :, J + 1:I].sum(2).float())[..., None, :]
+
+    def tile(a, I, J):
+        return a[..., I * SB:(I + 1) * SB, J * SB:(J + 1) * SB]
+    vq, dyq = flat(vc), flat(dyc)
+    M = mm(dyq, vq.transpose(-1, -2), n_in, n_in)          # (nh, nc, Q, Q)
+    Mii = torch.diagonal(M, dim1=-2, dim2=-1)              # v_i . dy_i
+    # the diagonal sub-blocks, per channel: D_ij = prod_{j<t<i} e^{logw_t}
+    w = torch.exp(wc)
+    Md = torch.stack([tile(M, I, I) for I in range(nsb)], 2)
+    drd, dkd = torch.zeros_like(rc), torch.zeros_like(rc)
+    Ad = torch.zeros(nh, nc, nsb, SB, SB)
+    for j in range(SB):
+        d = torch.ones_like(w[..., 0, :])
+        for i in range(j + 1, SB):
+            if i > j + 1:
+                d = d * w[..., i - 1, :]
+            kd = kc[..., j, :] * d
+            Ad[..., i, j] = (rc[..., i, :] * kd).sum(-1)
+            if i > j + 1:                        # neighbours: added apart
+                m = Md[..., i, j, None]
+                drd[..., i, :] += m * kd
+                dkd[..., j, :] += m * (rc[..., i, :] * d)
+    KK = kc * Fk                                           # k e^{E_e - E_j}
+    RR = rc * Fr                                           # r e^{E_{i-1}-E_b}
+    # 1. chunk states of the gradient and the r side
+    RE = rc * torch.exp((before[..., None, :] + Lprev).float())
+    ds = mm(flat(RE).transpose(-1, -2), dyq, 3, n_in)      # (nh, nc, hd, hd)
+    # M without the neighbours (i = j + 1), whose factor is 1 whatever the
+    # decay: their terms cancel in dlogw and are added to dr, dk apart
+    Mn = M.clone()
+    idx = torch.arange(1, Q)
+    Mn[..., idx, idx - 1] = 0.0
+    nb = torch.diagonal(M, offset=-1, dim1=-2, dim2=-1)    # M_{i, i-1}
+    X = sub(mm(dyq, hp.transpose(-1, -2), n_in, 3)) * Eb[..., None, :]
+    for I in range(1, nsb):
+        for J in range(I):
+            X[:, :, I] += g(I, J) * mm(tile(Mn, I, J), KK[:, :, J], 3, 3)
+    dro = Fr * X + drd                           # dr° less the neighbours
+    uu = u[:, None, None, None, :]
+    kq, rq = flat(kc), flat(rc)
+    nbr = torch.zeros_like(kq)
+    nbr[:, :, 1:] = nb[..., None] * kq[:, :, :-1]
+    dr = dro + sub(nbr) + uu * kc * sub(Mii[..., None])
+    P = flat(rc * dro)                                     # r_i . dr°_i
+    du = (rc * kc * sub(Mii[..., None])).sum((1, 2, 3))
+    # 2. the reverse pass over chunks
+    dH, dHc = dsT.clone(), [None] * nc
+    for c in reversed(range(nc)):
+        dHc[c] = dH
+        dH = decay[:, c, :, None] * dH + ds[:, c]
+    ds0, dHs = dH, torch.stack(dHc, 1)                     # dH_c
+    # 3. the k and v sides and dlogw
+    A = torch.zeros(nh, nc, Q, Q)
+    for I in range(nsb):
+        tile(A, I, I)[...] = Ad[:, :, I]
+        for J in range(I):
+            tile(A, I, J)[...] = mm(RR[:, :, I] * g(I, J),
+                                    KK[:, :, J].transpose(-1, -2), 3, 3)
+    YH = sub(mm(vq, dHs.transpose(-1, -2), n_in, 3)) * Ea[..., None, :]
+    Y = torch.zeros_like(YH)
+    for J in range(nsb - 1):
+        for I in range(J + 1, nsb):
+            Y[:, :, J] += g(I, J) * mm(tile(Mn, I, J).transpose(-1, -2),
+                                       RR[:, :, I], 3, 3)
+    dkH = Fk * YH                                # e^{E_{Q-1}-E_j} dH_c v_j
+    dko = Fk * Y + dkd                           # the rest, less neighbours
+    nbk = torch.zeros_like(rq)
+    nbk[:, :, :-1] = nb[..., None] * rq[:, :, 1:]
+    dk = dkH + dko + sub(nbk) + uu * rc * sub(Mii[..., None])
+    bonus = (rc * uu * kc).sum(-1, keepdim=True)
+    dv = mm(flat(KK * Ea[..., None, :]), dHs, 3, 3) \
+        + mm(A.transpose(-1, -2), dyq, 3, n_in) + bonus.reshape(nh, nc, Q, 1) * dyq
+    # dlogw_t: the terms whose exponent holds logw_t; suffix sums of r dr°
+    # less k dk° (the pairs i > t > j), prefix sums of k dkH (j < t), and
+    # e^{E_{Q-1}} rowsum(dH_c * h_{c-1}) at every step
+    a = -flat(kc * dko)
+    a[:, :, :-1] += P[:, :, 1:]
+    b = flat(kc * dkH)
+    pre = torch.zeros_like(b)
+    pre[:, :, 1:] = torch.cumsum(b[:, :, :-1], 2)
+    whole = decay[:, :, None, :] * (dHs * hp).sum(-1)[:, :, None, :]
+    dlogw = a.flip(2).cumsum(2).flip(2) + pre + whole
+    out = [a.reshape(nh, S, hd).permute(1, 0, 2)
+           for a in (flat(dr), flat(dk), dv, dlogw)]
+    return out + [du, ds0]
+
+
+@pytest.mark.parametrize("dtype,logw", [("float32", None),
+                                        ("bfloat16", None),
+                                        ("float32", -8.0)])
+def test_wkv_bwd_kernel_arithmetic_against_float64(dtype, logw):
+    """The CUDA wkv_scan backward's chunk decomposition, rebasing, operand
+    splits and chunk-local dlogw, emulated in float32 torch, give every
+    gradient finite and within 1e-5 of its largest entry of autograd of a
+    float64 recurrence at a rwkv6-3b head's width, (1, 2048, 2, 64) with a
+    nonzero s0 and d s_T: the accuracy argument of csrc/wkv_scan_bwd.cu,
+    checked before any card, also at logw = -8 on every step, where dlogw
+    is small against the terms that make it. bf16 inputs (and dy) are
+    rounded first."""
+    r, k, v, lw, u, s0 = (torch.as_tensor(a) for a in
+                          wkv_inputs(17, 1, 2048, 2, 64, s0=True))
+    if logw is not None:
+        lw = torch.full_like(lw, logw)
+    rng = np.random.default_rng(18)
+    dy = torch.as_tensor(rng.standard_normal(r.shape).astype(np.float32))
+    dsT = torch.as_tensor(rng.standard_normal(s0.shape).astype(np.float32))
+    r, k, v, dy = (a.to(getattr(torch, dtype)).float() for a in (r, k, v, dy))
+    got = _wkv_bwd_emulated(r[0], k[0], v[0], lw[0], u, s0[0], dy[0],
+                            dsT[0], n_in=3 if dtype == "float32" else 1)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    want = _wkv_grads_float64(r, k, v, lw, u, s0, dy, dsT)
+    want = [w[0] for w in want[:4]] + [want[4], want[5][0]]
+    _hold_grads(got, want, 1e-5, (dtype, logw))
+
+
+def test_wkv_bwd_chunked_algebra_matches_plain_backward():
+    """The backward's chunked algebra without the operand splits, at
+    chunk 32 (two sub-blocks) over three chunks of (2, 96, 3, 16) with s0
+    and d s_T, batch row by batch row: within 1e-6 of each gradient's
+    largest entry of the plain backward (the reverse recurrence)."""
+    r, k, v, lw, u, s0 = _t(wkv_inputs(36, 2, 96, 3, 16, s0=True))
+    rng = np.random.default_rng(37)
+    dy = torch.as_tensor(rng.standard_normal(r.shape).astype(np.float32))
+    dsT = torch.as_tensor(rng.standard_normal(s0.shape).astype(np.float32))
+    rows = [_wkv_bwd_emulated(r[b], k[b], v[b], lw[b], u, s0[b], dy[b],
+                              dsT[b], n_in=3, Q=32, split=False)
+            for b in range(2)]
+    got = [torch.stack([g[n] for g in rows]) for n in range(4)] + [
+        rows[0][4] + rows[1][4], torch.stack([g[5] for g in rows])]
+    _hold_grads(got, wref.wkv_scan_bwd_ref(r, k, v, lw, u, s0, dy, dsT),
+                1e-6)
 
 
 @pytest.mark.parametrize("bad", ["cpu", "float16", "mixed", "dt_dtype",
@@ -666,19 +842,24 @@ def test_cuda_ops_take_the_kernels_in_the_model_layout(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("with_dsT,want_ds0", [(True, True), (False, False),
+                                               (True, False), (False, True)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,logw", [((2, 128, 2, 64), None),
                                         ((1, 100, 2, 32), None),
                                         ((2, 256, 3, 64), -8.0)])
 def test_cuda_wkv_gradient_takes_the_backward_kernel(cuda_device, shape,
-                                                     logw, dtype):
+                                                     logw, dtype, with_dsT,
+                                                     want_ds0):
     """On CUDA tensors that require grad ops.wkv_scan runs the forward
     kernel inside its autograd Function and the backward kernel once
-    (no plain version): every gradient, with a non-zero u, s0 and a
-    gradient on s_T, agrees with the plain backward on the same inputs
-    (fp32: 1e-5 of each gradient's largest entry; bf16: one bf16 step at
-    the top of the range for dr, dk, dv, rounded to bf16, 1e-5 for the
-    fp32 dlogw, du and ds0) and is finite at logw = -8."""
+    (no plain version): every gradient, with a non-zero u and s0, with and
+    without a gradient on s_T and with and without one for s0, agrees
+    with the plain backward on the same inputs (fp32: 1e-5 of each
+    gradient's largest entry; bf16: one bf16 step at the top of the range
+    for dr, dk, dv, rounded to bf16, 1e-5 for the fp32 dlogw, du and ds0)
+    and is finite at logw = -8; a second backward of the same graph gives
+    the same bits."""
     dt = getattr(torch, dtype)
     r, k, v, lw, u, s0 = _t(wkv_inputs(34, *shape, s0=True), cuda_device,
                             dt, n_cast=3)
@@ -689,24 +870,32 @@ def test_cuda_wkv_gradient_takes_the_backward_kernel(cuda_device, shape,
                          device=cuda_device).to(dt)
     dsT = torch.as_tensor(rng.standard_normal(s0.shape).astype(np.float32),
                           device=cuda_device)
-    ins = [a.clone().requires_grad_() for a in (r, k, v, lw, u, s0)]
+    ins = [a.clone().requires_grad_() for a in (r, k, v, lw, u)]
+    s0_in = s0.clone().requires_grad_(want_ds0)
     fwd, bwd = wkernel.KERNEL.launches, wkernel.KERNEL_BWD.launches
-    y, sT = wops.wkv_scan(*ins)
+    y, sT = wops.wkv_scan(*ins, s0_in)
     assert y.grad_fn is not None and sT.grad_fn is not None
-    got = torch.autograd.grad([y, sT], ins, [dy, dsT])
+    outs, gouts = ([y, sT], [dy, dsT]) if with_dsT else ([y], [dy])
+    wrt = ins + [s0_in] * want_ds0
+    got = torch.autograd.grad(outs, wrt, gouts, retain_graph=True)
     torch.cuda.synchronize()
     assert wkernel.KERNEL.launches == fwd + 1
     assert wkernel.KERNEL_BWD.launches == bwd + 1
-    assert [g.dtype for g in got] == [dt] * 3 + [torch.float32] * 3
+    assert [g.dtype for g in got] == [dt] * 3 + [torch.float32] * (
+        2 + want_ds0)
     assert all(bool(torch.isfinite(g).all()) for g in got)
+    again = torch.autograd.grad(outs, wrt, gouts)
+    assert wkernel.KERNEL_BWD.launches == bwd + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     pad = (-shape[1]) % 64
     padded = [torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
               for a in (r, k, v, lw, dy)]
-    want = wref.wkv_scan_bwd_ref(*padded[:4], u, s0, padded[4], dsT)
+    want = wref.wkv_scan_bwd_ref(*padded[:4], u, s0, padded[4],
+                                 dsT if with_dsT else None)
     want = [w[:, :shape[1]] if i < 4 else w for i, w in enumerate(want)]
     rel = 1e-5 if dtype == "float32" else BF16_Y_REL
     _hold_grads(got[:3], want[:3], rel)
-    _hold_grads(got[3:], want[3:], 1e-5)
+    _hold_grads(got[3:], want[3:3 + len(got[3:])], 1e-5)
 
 
 @pytest.mark.cuda
