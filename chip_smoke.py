@@ -5,9 +5,9 @@
 
 1. Device: the card's name and power limit (nvidia-smi), the torch
    device name and count.
-2. Build: compiles the five sources under `src/repro_torch/csrc/`
-   (ensemble_fitness, flash_attention, ssd_scan, wkv_scan and its
-   backward wkv_scan_bwd) with nvcc for
+2. Build: compiles the six sources under `src/repro_torch/csrc/`
+   (ensemble_fitness, flash_attention, ssd_scan and its backward
+   ssd_scan_bwd, wkv_scan and its backward wkv_scan_bwd) with nvcc for
    sm_90a, one nvcc each, started together, and prints each build's
    seconds and ptxas register / shared-memory report.
 3. Kernel: both entry points of ensemble_fitness at the main path's
@@ -89,20 +89,40 @@
    runs four kernels, wkv_scan_bwd_*; each one's time printed), and the
    bound (bytes of the function's inputs and outputs, against twice the
    forward's least work).
+7b. Kernel: the ssd_scan backward (ssd_scan_bwd, no TPU counterpart),
+   through ops.ssd_scan's autograd Function with B and C views of one
+   tensor (one forward and one backward launch), at (2, 512, 4, 64, 64)
+   in fp32 and bf16, at a per-step log decay down to -18 (dt in [3, 4],
+   A_log in [1, 1.5]) in both, and at a ragged S = 100, each with a
+   gradient on h_T: dx, ddt, dA_log, dB, dC and dD held against the
+   plain backward (ref.ssd_scan_bwd_ref) with wkv_scan_bwd's limits
+   (2**-7 of max |g| for bf16 dx, dB, dC, 1e-5 otherwise) and, at (2,
+   512, 4, 64, 64), against torch.autograd of a float64 recurrence (fp32
+   within 1e-6); every gradient finite. At the training shapes, a
+   zamba2-7b microbatch (2, 2048, 112, 64, 64) and the whole batch (4,
+   2048, 112, 64, 64), bf16, as a layer calls it (no d h_T): held
+   against the plain backward with the same limits; at the microbatch
+   two calls must give the same bits in all six gradients; at both:
+   timed in turns against the plain backward, device time from
+   torch.profiler (a call runs seven kernels, ssd_scan_bwd_*; each one's
+   time printed), and the bound (bytes, against twice the forward's
+   least work).
 8. Model check: the smoke rwkv6-3b and zamba2-7b in fp32, the same
    weights on the card (kernels) and on the CPU (plain versions):
    prefill logits and states agree (atol 3e-4, rtol 1e-3).
-9. Train check: the smoke qwen2.5-3b and rwkv6-3b in fp32, from the
-   same parameters (drawn on the CPU, as train() draws them) and the same
-   TokenPipeline(seed=0) batches, on the card (rwkv6: both wkv kernels)
-   and on the CPU (plain versions): every parameter's gradient on the
-   first batch within 1e-4 of its max |g|, then 10 adamw steps of 4 x 64
-   tokens as train() takes them, whose losses agree within 1e-5
-   relative; the card's last loss is below its first; rwkv6-3b launches
-   wkv_scan twice (once more under the checkpoint's recompute) and
-   wkv_scan_bwd once a layer and pass. Then the rwkv6-3b card run once
-   more with a planted fault (the wkv backward's dk zeroed): the
-   gradient check must fail on it (its gaps are printed).
+9. Train check: the smoke qwen2.5-3b, rwkv6-3b and zamba2-7b in fp32,
+   from the same parameters (drawn on the CPU, as train() draws them)
+   and the same TokenPipeline(seed=0) batches, on the card (rwkv6: both
+   wkv kernels; zamba2: both ssd kernels) and on the CPU (plain
+   versions): every parameter's gradient on the first batch within 1e-4
+   of its max |g|, then 10 adamw steps of 4 x 64 tokens as train() takes
+   them, whose losses agree within 1e-5 relative; the card's last loss
+   is below its first; each rwkv6 and Mamba2 layer launches its scan
+   twice (once more under the checkpoint's recompute) and the scan's
+   backward once a layer and pass. Then the rwkv6-3b and zamba2-7b card
+   runs once more with a planted fault (the wkv backward's dk, the ssd
+   backward's ddt zeroed): the gradient check must fail on each (its
+   gaps are printed).
 10. Serve, in turn: FedPAE soft-vote serving
    (`launch/serve.py::serve_batch`) of two full-width members (bf16,
    random weights from seeds 0 and 1) of llama3-8b (attn_impl="pallas":
@@ -119,14 +139,17 @@
    for llama3-8b the pallas-vs-xla gap of member 0's last-position
    probabilities.
 11. Train, in turn: `train()` of qwen2.5-3b and rwkv6-3b at full width
-   and depth (bf16, random weights from seed 0), adamw (weight decay
-   0.01) and warmup_cosine, 6 steps of 4 x 2048 tokens from
-   TokenPipeline(seed=0) in 2 microbatches. The wkv counts are reset
-   just before each run: rwkv6-3b must launch wkv_scan 32 x 2 x 2 and
-   wkv_scan_bwd 32 x 2 times a step, 6 steps in all. Reports every loss
-   (all finite), step seconds (as train() returns them), tokens/s over
-   steps 2-6, peak device memory and the launches, then one more step
-   under torch.profiler by kernel.
+   and depth and zamba2-7b at full width and 45 of its 81 layers (for
+   memory: 7 super-blocks of 6 Mamba2 blocks and a tail of 3), bf16,
+   random weights from seed 0, adamw (weight decay 0.01) and
+   warmup_cosine, 6 steps of 4 x 2048 tokens from TokenPipeline(seed=0)
+   in 2 microbatches. The scan kernels' counts are reset just before
+   each run: rwkv6-3b must launch wkv_scan 32 x 2 x 2 and wkv_scan_bwd
+   32 x 2 times a step, zamba2-7b ssd_scan 45 x 2 x 2 and ssd_scan_bwd
+   45 x 2, 6 steps in all. Reports every loss (all finite), step seconds
+   (as train() returns them), tokens/s over steps 2-6, peak device
+   memory and the launches, then one more step under torch.profiler by
+   kernel, with the scan kernels' share of it.
 12. Every share of bound printed (bound / time) must be <= 1.05: a
    kernel faster than its bound means the bound is no floor. The shares,
    the `kernels` JSON line, then the result line.
@@ -1035,20 +1058,22 @@ def wkv_grads_float64(torch, r, k, v, logw, u, s0, dy, dsT):
     return torch.autograd.grad(loss, ins)
 
 
-def _grad_errs(got, want):
+def _grad_errs(got, want, names=WKV_GRADS):
     """Each gradient's max abs error over its largest |entry|."""
     return {n: float((g.double() - w.double()).abs().max()
                      / w.double().abs().max().clamp_min(1e-30))
-            for n, g, w in zip(WKV_GRADS, got, want) if w is not None}
+            for n, g, w in zip(names, got, want) if w is not None}
 
 
-def _hold_grads(errs, dtype, what):
-    """dr, dk, dv within WKV_BWD_TOL of each max |g| in their dtype, the
-    fp32 gradients (dlogw, du, ds0 where given) within WKV_BWD_F32_TOL."""
-    check(all(errs[n] <= WKV_BWD_TOL[dtype] for n in WKV_GRADS[:3])
-          and all(e <= WKV_BWD_F32_TOL for n, e in errs.items()
-                  if n in WKV_GRADS[3:]),
-          f"wkv_scan_bwd at {what} disagrees with its plain version: {errs}")
+def _hold_grads(errs, dtype, what, act=WKV_GRADS[:3],
+                kernel="wkv_scan_bwd"):
+    """The gradients of the activation dtype (`act`: dr, dk, dv; dx, dB,
+    dC for ssd) within WKV_BWD_TOL of each max |g| in their dtype, the
+    fp32 gradients (dlogw, du, ds0 where given; ddt, dA_log, dD) within
+    WKV_BWD_F32_TOL."""
+    check(all(e <= (WKV_BWD_TOL[dtype] if n in act else WKV_BWD_F32_TOL)
+              for n, e in errs.items()),
+          f"{kernel} at {what} disagrees with its plain version: {errs}")
 
 
 def wkv_bwd_phase(torch):
@@ -1185,13 +1210,208 @@ def wkv_bwd_phase(torch):
     return out
 
 
+SSD_GRADS = ("dx", "ddt", "dA_log", "dB", "dC", "dD")
+SSD_ACT = ("dx", "dB", "dC")   # the gradients in the activation dtype
+SSD_BWD_CHECK = (2, 512, 4, 64, 64)
+SSD_MB = (2, 2048, 112, 64, 64)   # a zamba2-7b training microbatch
+SSD_BWD_F64_TOL = 1e-6   # fp32 gradients against float64, of each max |g|
+
+
+def ssd_bwd_cost(Bb, S, nh, hd, ds, elem_bytes):
+    """The backward's bytes and least work, as ssd_cost counts the
+    forward's: x, dy and dx, B, C, dB and dC in the activation type; dt,
+    ddt, A_log, D, dA_log and dD in fp32 (the model's case: no gradient
+    on h_T; the forward's chunk states are the kernel's own choice and
+    not counted). The least work is the chunked form's backward: each
+    product of the forward's least work (ssd_cost) takes two products
+    backward, so twice its FLOP."""
+    nbytes = (elem_bytes * (3 * Bb * S * nh * hd + 4 * Bb * S * ds)
+              + 4 * (2 * Bb * S * nh + 4 * nh))
+    return {rate: (nbytes, 2 * c[1], 2 * c[2]) for rate, c in
+            ssd_cost(Bb, S, nh, hd, ds, elem_bytes).items()}
+
+
+def ssd_bwd_case(torch, gen, Bb, S, nh, hd, ds, dtype, strong=False):
+    """x, dt, A_log, bc (B and C as one (Bb, S, 2 ds) tensor, as
+    ssm_forward makes them), D, dy and d h_T; `strong`: dt in [3, 4] and
+    A_log in [1, 1.5], a log decay down to -18 a step."""
+    F = torch.nn.functional
+    n = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa
+    u = lambda *s: torch.rand(s, generator=gen, device="cuda")   # noqa
+    dt_ = getattr(torch, dtype)
+    dt, A_log = ((3.0 + u(Bb, S, nh), 1.0 + 0.5 * u(nh)) if strong
+                 else (F.softplus(n(Bb, S, nh)), 0.5 * n(nh)))
+    return (n(Bb, S, nh, hd).to(dt_), dt, A_log, n(Bb, S, 2 * ds).to(dt_),
+            1.0 + 0.3 * n(nh), n(Bb, S, nh, hd).to(dt_), n(Bb, nh, hd, ds))
+
+
+def ssd_grads_float64(torch, x, dt, A_log, B, C, D, dy, dhT):
+    """torch.autograd of the ssd recurrence in float64 on the card: the
+    gradients of sum(y dy) + sum(h_T dhT) with respect to x, dt, A_log,
+    B, C, D."""
+    ins = [a.detach().double().requires_grad_() for a in
+           (x, dt, A_log, B, C, D)]
+    xd, dtd, ad, bd, cd, Dd = ins
+    A = -ad.exp()
+    h = xd.new_zeros(x.shape[0], x.shape[2], x.shape[3], B.shape[-1])
+    ys = []
+    for t in range(x.shape[1]):
+        h = h * (dtd[:, t] * A).exp()[:, :, None, None] \
+            + (dtd[:, t, :, None] * xd[:, t])[..., None] * bd[:, t, None, None]
+        ys.append((h * cd[:, t, None, None]).sum(-1))
+    y = torch.stack(ys, 1) + xd * Dd[None, None, :, None]
+    loss = (y * dy.double()).sum() + (h * dhT.double()).sum()
+    return torch.autograd.grad(loss, ins)
+
+
+def ssd_bwd_phase(torch):
+    """The ssd_scan backward kernel against its plain version (and, at
+    the check shape, autograd of a float64 recurrence), through
+    ops.ssd_scan's autograd Function with B and C views of one tensor;
+    timed at the training shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import kernel as sk
+    from repro_torch.kernels.ssd_scan import ops as so
+    from repro_torch.kernels.ssd_scan import ref as sr
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {"err": 0.0}
+    cases = [(SSD_BWD_CHECK, d, False) for d in ("float32", "bfloat16")] + [
+        ((2, 256, 2, 64, 64), "float32", True),
+        ((2, 256, 2, 64, 64), "bfloat16", True),
+        ((2, 100, 2, 32, 16), "float32", False)]
+    for shape, dtype, strong in cases:
+        x, dt, A_log, bc, D, dy, dhT = ssd_bwd_case(torch, gen, *shape,
+                                                    dtype, strong)
+        ds = shape[-1]
+        ins = [a.clone().requires_grad_() for a in (x, dt, A_log, bc, D)]
+        Bv, Cv = ins[3].split(ds, dim=-1)
+        fwd, bwd = sk.KERNEL.launches, sk.KERNEL_BWD.launches
+        y, hT = so.ssd_scan(ins[0], ins[1], ins[2], Bv, Cv, ins[4])
+        g = torch.autograd.grad([y, hT], ins, [dy, dhT])
+        torch.cuda.synchronize()
+        check(sk.KERNEL.launches == fwd + 1
+              and sk.KERNEL_BWD.launches == bwd + 1,
+              f"ssd_scan_bwd at {shape} {dtype}: the forward and backward "
+              "kernels did not launch once each")
+        got = [g[0], g[1], g[2], g[3][..., :ds], g[3][..., ds:], g[4]]
+        B, C = bc.split(ds, dim=-1)
+        pad = (-shape[1]) % 128
+        p4 = lambda a: F.pad(a, (0, 0, 0, 0, 0, pad))  # noqa: E731
+        p3 = lambda a: F.pad(a, (0, 0, 0, pad))        # noqa: E731
+        want = list(sr.ssd_scan_bwd_ref(p4(x), p3(dt), A_log, p3(B), p3(C),
+                                        D, p4(dy), dhT))
+        for i in (0, 1, 3, 4):
+            want[i] = want[i][:, :shape[1]]
+        errs = _grad_errs(got, want, SSD_GRADS)
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        line = (f"kernel ssd_scan_bwd {shape} {dtype}"
+                f"{' strong decay (down to -18 a step)' if strong else ''}, "
+                f"d h_T: against the plain backward "
+                + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                + f" of each max |g|; finite {finite}")
+        if shape == SSD_BWD_CHECK:
+            e64 = _grad_errs(got, ssd_grads_float64(
+                torch, x, dt, A_log, B, C, D, dy, dhT), SSD_GRADS)
+            line += ("; against autograd of a float64 recurrence "
+                     + ", ".join(f"{n} {e:.3e}" for n, e in e64.items()))
+            if dtype == "float32":
+                check(max(e64.values()) <= SSD_BWD_F64_TOL,
+                      f"ssd_scan_bwd fp32 is {e64} from float64")
+        print(line)
+        check(finite, f"ssd_scan_bwd at {shape} {dtype} strong {strong}: "
+                      "non-finite gradients")
+        _hold_grads(errs, dtype, f"{shape} {dtype} strong {strong}",
+                    SSD_ACT, "ssd_scan_bwd")
+        out["err"] = max(out["err"], max(
+            float((a.float() - w.float()).abs().max())
+            for a, w in zip(got, want)))
+        del ins, y, hT, g, got, want
+    # the training shapes, as a layer calls the scan: bf16, B and C views
+    # of one tensor, h_T unused (no d h_T); checked, then timed in turns
+    # against the plain backward; at SSD_MB two calls must give the same
+    # bits
+    for shape in (SSD_MB, SSD_SLICE):
+        x, dt, A_log, bc, D, dy, _ = ssd_bwd_case(torch, gen, *shape,
+                                                  "bfloat16")
+        B, C = bc.split(shape[-1], dim=-1)
+        _, _, states = sk.ssd_scan_fwd(x, dt, A_log, B, C, D)
+
+        def run_kernel():
+            return sk.ssd_scan_bwd(x, dt, A_log, B, C, D, states, dy)
+
+        def run_plain():
+            return sr.ssd_scan_bwd_ref(x, dt, A_log, B, C, D, dy)
+        bwd = sk.KERNEL_BWD.launches
+        got = run_kernel()
+        torch.cuda.synchronize()
+        check(sk.KERNEL_BWD.launches == bwd + 1,
+              f"ssd_scan_bwd at {shape} did not launch once")
+        want = run_plain()
+        errs = _grad_errs(got, want, SSD_GRADS)
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        print(f"kernel ssd_scan_bwd {shape} bfloat16 as a layer calls it "
+              "(no d h_T): against the plain backward "
+              + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+              + f" of each max |g|; finite {finite}")
+        check(finite, f"ssd_scan_bwd at {shape}: non-finite gradients")
+        _hold_grads(errs, "bfloat16", f"{shape} as a layer calls it",
+                    SSD_ACT, "ssd_scan_bwd")
+        out["err"] = max(out["err"], max(
+            float((a.float() - w.float()).abs().max())
+            for a, w in zip(got, want)))
+        if shape == SSD_MB:
+            again = run_kernel()
+            same = [n for n, a, b in zip(SSD_GRADS, got, again)
+                    if torch.equal(a, b)]
+            print(f"kernel ssd_scan_bwd {shape}: two calls bitwise equal in "
+                  f"{same} of {list(SSD_GRADS)}")
+            check(len(same) == 6, f"ssd_scan_bwd at {shape} is not "
+                  f"deterministic: only {same} agree bitwise")
+            del again
+        del got, want
+        p1, k1, k2, p2 = (time_ms(torch, fn, iters=it, warmup=1)
+                          for fn, it in ((run_plain, 1), (run_kernel, 10),
+                                         (run_kernel, 10), (run_plain, 1)))
+        own_ms, _, n_rec, parts = device_ms(torch, run_kernel, iters=5,
+                                            name="ssd_scan_bwd")
+        counts = ssd_bwd_cost(*shape, 2)
+        b_ms, b_by = roofline(*counts[False], False, 2)
+        k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        share(f"ssd_scan_bwd {shape}", b_ms, k_ms)
+        nbytes, flops, tc_flops = counts[False]
+        print(f"  time ssd_scan_bwd {shape} bf16 (no d h_T): kernel "
+              f"{k_ms:.6f} ms ({k1:.6f}, {k2:.6f}), plain {p_ms:.6f} ms "
+              f"({p1:.6f}, {p2:.6f}) per call; on the device (profiler, "
+              f"{n_rec} launches recorded over 5 calls) {own_ms} ms a call; "
+              f"bound {b_ms:.6f} ms ({b_by}: {nbytes} bytes; twice the "
+              f"forward's least work, {flops} fp32-factor FLOP at {TERMS} "
+              f"bf16 products each and {tc_flops} exact bf16 FLOP), share "
+              f"{b_ms / k_ms:.4f}; no single PyTorch call computes this "
+              "function (library: none)")
+        for key, ms in parts.items():
+            print(f"    {ms:.6f} ms a launch  {key[:90]}")
+        out[shape] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by=b_by, device_ms=own_ms)
+        if shape == SSD_SLICE:
+            out.update(out[shape])
+        del x, dt, A_log, bc, B, C, D, dy, states
+        torch.cuda.empty_cache()
+    return out
+
+
 TRAIN_CHECK = {"steps": 10, "batch": 4, "seq": 64, "seed": 0, "lr": 3e-4}
 TRAIN_LOSS_RTOL = 1e-5     # card against CPU, fp32 smoke losses
 TRAIN_GRAD_TOL = 1e-4      # card against CPU, each parameter's first-step
                            # gradient, of its max |g|
 TRAIN_FULL = {"steps": 6, "batch": 4, "seq": 2048, "microbatches": 2,
               "seed": 0}
-TRAINS = ("qwen2.5-3b", "rwkv6-3b")
+TRAINS = {  # arch -> n_layers: zamba2-7b's depth cut for memory
+    "qwen2.5-3b": None, "rwkv6-3b": None, "zamba2-7b": 45}
+REDUCED_TRAIN = {"zamba2-7b": "n_layers 81 -> 45 (7 super-blocks of 6 "
+                 "Mamba2 blocks and a tail of 3, both shared attention "
+                 "blocks in use): 6956658896 parameters with adamw's fp32 "
+                 "moments and gradients do not fit one 80 GB card"}
 
 
 def smoke_train(torch, arch, device):
@@ -1241,93 +1461,124 @@ def _train_gaps(card, cpu):
     return rel, gerr[worst], worst
 
 
-def _zero_dk(torch, wo):
-    """A planted fault: the wkv backward's dk replaced by zeros. Returns
-    the function that undoes it."""
-    orig = wo._WkvScan.backward
+def _zero_grad(torch, fn_class, index):
+    """A planted fault: gradient `index` of the autograd Function
+    `fn_class`'s backward replaced by zeros. Returns the function that
+    undoes it."""
+    orig = fn_class.backward
 
-    def backward(ctx, dy, dsT):
-        grads = list(orig(ctx, dy, dsT))
-        grads[1] = torch.zeros_like(grads[1])
+    def backward(ctx, *grads_out):
+        grads = list(orig(ctx, *grads_out))
+        grads[index] = torch.zeros_like(grads[index])
         return tuple(grads)
-    wo._WkvScan.backward = staticmethod(backward)
-    return lambda: setattr(wo._WkvScan, "backward", staticmethod(orig))
+    fn_class.backward = staticmethod(backward)
+    return lambda: setattr(fn_class, "backward", staticmethod(orig))
+
+
+def _scan_kernels():
+    """family -> (the kernel module of its scan, the scan's autograd
+    Function, the planted fault's gradient index and what it zeroes: the
+    wkv backward's dk, the ssd backward's ddt, which moves in_dt, dt_bias
+    and A_log). A family with no scan kernel is absent."""
+    from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.wkv_scan import kernel as wkv_kernel
+    from repro_torch.kernels.wkv_scan import ops as wkv_ops
+    return {"ssm": (wkv_kernel, wkv_ops._WkvScan, 1, "dk of the wkv backward"),
+            "hybrid": (ssd_kernel, ssd_ops._SsdScan, 1,
+                       "ddt of the ssd backward")}
 
 
 def train_check_phase(torch):
-    """Smoke qwen2.5-3b and rwkv6-3b training in fp32, on the card (the
-    wkv kernels forward and backward) and on the CPU (plain versions)
-    from the same parameters and batches: first-step gradients and the
-    losses agree, the card's loss falls, and every rwkv6 layer's scan
-    went through both wkv kernels. Then the same card run with a planted
-    fault (the wkv backward's dk zeroed) must fail the gradient check."""
+    """Smoke qwen2.5-3b, rwkv6-3b and zamba2-7b training in fp32, on the
+    card (the scan kernels forward and backward) and on the CPU (plain
+    versions) from the same parameters and batches: first-step gradients
+    and the losses agree, the card's loss falls, and every rwkv6 and
+    Mamba2 layer's scan went through both of its kernels. Then the same
+    card run with a planted fault (the wkv backward's dk, the ssd
+    backward's ddt zeroed) must fail the gradient check."""
     from repro_torch.configs import get_smoke
-    from repro_torch.kernels.wkv_scan import kernel as wk
-    from repro_torch.kernels.wkv_scan import ops as wo
     c = TRAIN_CHECK
     for arch in TRAINS:
-        fwd, bwd = wk.KERNEL.launches, wk.KERNEL_BWD.launches
+        cfg = get_smoke(arch)
+        kern, fn_class, index, what = _scan_kernels().get(
+            cfg.family, (None,) * 4)
+        kname = kern and kern.KERNEL.name
+        libs = (kern.KERNEL, kern.KERNEL_BWD) if kern else ()
+        before = [lib.launches for lib in libs]
         on_card = smoke_train(torch, arch, "cuda")
-        fwd, bwd = wk.KERNEL.launches - fwd, wk.KERNEL_BWD.launches - bwd
+        fwd, bwd = ([lib.launches - b for lib, b in zip(libs, before)]
+                    or (0, 0))
         on_cpu = smoke_train(torch, arch, "cpu")
         rel, gerr, worst = _train_gaps(on_card, on_cpu)
         losses = on_card[1]
+        scan = (f"{kname} launches {fwd}, {kname}_bwd {bwd}" if kern
+                else "no scan kernel")
         print(f"train check {arch} smoke fp32, {c}: card losses {losses}, "
               f"CPU {on_cpu[1]}; max relative loss difference {rel:.3e} "
               f"(limit {TRAIN_LOSS_RTOL}); largest first-step gradient "
               f"difference {gerr:.3e} of its max |g| ({worst}; limit "
-              f"{TRAIN_GRAD_TOL}); wkv_scan launches {fwd}, wkv_scan_bwd "
-              f"{bwd}")
+              f"{TRAIN_GRAD_TOL}); {scan}")
         check(rel <= TRAIN_LOSS_RTOL, f"{arch}: card and CPU training "
               f"losses differ by {rel} relative")
         check(gerr <= TRAIN_GRAD_TOL, f"{arch}: card and CPU gradients of "
               f"{worst} differ by {gerr} of its max |g|")
         check(losses[-1] < losses[0], f"{arch}: the card's loss did not "
               f"fall: {losses}")
-        cfg = get_smoke(arch)
-        if cfg.family == "ssm":   # one gradient pass and `steps` steps
-            per = cfg.n_layers * (c["steps"] + 1)
-            check(fwd == 2 * per and bwd == per, f"{arch}: wkv launches "
-                  f"{fwd} / {bwd}, expected {2 * per} / {per}")
-            undo = _zero_dk(torch, wo)
-            try:
-                f_rel, f_gerr, f_worst = _train_gaps(
-                    smoke_train(torch, arch, "cuda"), on_cpu)
-            finally:
-                undo()
-            print(f"train check {arch} with a planted fault (dk of the wkv "
-                  f"backward zeroed): loss difference {f_rel:.3e}, "
-                  f"gradient difference {f_gerr:.3e} ({f_worst})")
-            check(f_gerr > TRAIN_GRAD_TOL, f"{arch}: the gradient check "
-                  "did not see the planted fault")
+        if kern is None:
+            continue
+        per = cfg.n_layers * (c["steps"] + 1)  # a gradient pass and steps
+        check(fwd == 2 * per and bwd == per, f"{arch}: {kname} launches "
+              f"{fwd} / {bwd}, expected {2 * per} / {per}")
+        undo = _zero_grad(torch, fn_class, index)
+        try:
+            f_rel, f_gerr, f_worst = _train_gaps(
+                smoke_train(torch, arch, "cuda"), on_cpu)
+        finally:
+            undo()
+        print(f"train check {arch} with a planted fault ({what} zeroed): "
+              f"loss difference {f_rel:.3e}, gradient difference "
+              f"{f_gerr:.3e} ({f_worst})")
+        check(f_gerr > TRAIN_GRAD_TOL, f"{arch}: the gradient check did "
+              "not see the planted fault")
 
 
-def full_train_phase(torch, arch):
-    """train() of `arch` at full width and depth on the card: adamw and
-    warmup_cosine, batch 4 x 2048 in 2 microbatches, 6 steps from seed
-    0; then one more step (a fresh adamw state) under torch.profiler."""
+def full_train_phase(torch, arch, n_layers):
+    """train() of `arch` at full width (and depth, unless `n_layers` cuts
+    it) on the card: adamw and warmup_cosine, batch 4 x 2048 in 2
+    microbatches, 6 steps from seed 0; then one more step (a fresh adamw
+    state) under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.data import TokenPipeline
-    from repro_torch.kernels.wkv_scan import kernel as wk
     from repro_torch.launch import steps as steps_mod
     from repro_torch.launch.train import scaled_config, train
     from repro_torch.optim import make_optimizer, warmup_cosine
     c = TRAIN_FULL
     cfg = scaled_config(arch, "full")
-    print(f"train {arch} config:", json.dumps({"train": dict(c, arch=arch),
-          "model": {k: getattr(cfg, k) for k in (
-              "family", "n_layers", "d_model", "n_heads", "n_kv_heads",
-              "head_dim", "d_ff", "vocab", "rwkv_head_dim", "attn_impl",
-              "attn_chunk", "dtype", "source")}}, allow_nan=False))
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
+    print(f"train {arch} config:", json.dumps({
+        "train": dict(c, arch=arch, n_layers=n_layers),
+        "reduced": REDUCED_TRAIN.get(arch, "nothing"), "model": {
+            k: getattr(cfg, k) for k in (
+                "family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+                "head_dim", "d_ff", "vocab", "rwkv_head_dim", "ssm_state",
+                "ssm_head_dim", "shared_attn_every", "n_shared_attn",
+                "attn_impl", "attn_chunk", "dtype", "source")}},
+        allow_nan=False))
+    kern = _scan_kernels().get(cfg.family, (None,))[0]
+    kname = kern and kern.KERNEL.name
+    libs = (kern.KERNEL, kern.KERNEL_BWD) if kern else ()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    wk.KERNEL.launches = wk.KERNEL_BWD.launches = 0
+    for lib in libs:
+        lib.launches = 0
     params, losses, cfg, secs = train(
         arch, "full", steps=c["steps"], batch=c["batch"], seq=c["seq"],
         seed=c["seed"], microbatches=c["microbatches"], log_every=1,
-        device="cuda")
-    fwd, bwd = wk.KERNEL.launches, wk.KERNEL_BWD.launches
+        device="cuda", n_layers=n_layers)
+    fwd, bwd = [lib.launches for lib in libs] or (0, 0)
     peak = torch.cuda.max_memory_allocated()
     n_par = sum(p.numel() for p in params.parameters())
     tok = c["batch"] * c["seq"]
@@ -1336,16 +1587,17 @@ def full_train_phase(torch, arch):
           f"seconds {secs}; steps 2-"
           f"{c['steps']}: {sum(later) / len(later):.6f} s a step, "
           f"{tok * len(later) / sum(later):.1f} tokens/s; peak device "
-          f"memory {peak} bytes ({peak / 2**30:.2f} GiB); wkv_scan / "
-          f"wkv_scan_bwd launches {fwd} / {bwd} in {c['steps']} steps")
+          f"memory {peak} bytes ({peak / 2**30:.2f} GiB); "
+          + (f"{kname} / {kname}_bwd launches {fwd} / {bwd} in "
+             f"{c['steps']} steps" if kern else "no scan kernel"))
     check(all(map(math.isfinite, losses)),
           f"{arch}: non-finite training losses {losses}")
     n_mb = c["microbatches"]
-    if cfg.family == "ssm":
+    if kern is not None:
         want = (2 * cfg.n_layers * n_mb, cfg.n_layers * n_mb)
         check((fwd, bwd) == (c["steps"] * want[0], c["steps"] * want[1]),
-              f"{arch}: wkv launches {fwd} / {bwd} in {c['steps']} steps, "
-              f"expected {want} a step (n_layers x microbatches x 2 "
+              f"{arch}: {kname} launches {fwd} / {bwd} in {c['steps']} "
+              f"steps, expected {want} a step (n_layers x microbatches x 2 "
               "forward, one under the checkpoint's recompute, and n_layers "
               "x microbatches backward)")
     # one more step under the profiler, by kernel name
@@ -1369,6 +1621,11 @@ def full_train_phase(torch, arch):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms  "
               f"{e.count:6d} x  {e.key[:90]}")
+    scans = [e for e in kernels if kname and kname in e.key]
+    if scans:
+        print(f"train {arch}: the {kname} kernels of the profiled step: "
+              + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f}"
+                          f" ms ({e.count} x)" for e in scans))
     del params, state, opt, step_fn, b, prof
     torch.cuda.empty_cache()
     return {"fwd": fwd, "bwd": bwd, "losses": losses}
@@ -1555,7 +1812,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; device "
           f"{name!r}, count {count}")
     libs = [kernel.KERNEL, fa_kernel.KERNEL, ssd_kernel.KERNEL,
-            wkv_kernel.KERNEL, wkv_kernel.KERNEL_BWD]
+            ssd_kernel.KERNEL_BWD, wkv_kernel.KERNEL, wkv_kernel.KERNEL_BWD]
     build_all(libs)
     for lib in libs:
         built = "built" if lib.build_seconds is not None \
@@ -1572,13 +1829,17 @@ def main() -> int:
     flash = flash_phase(torch)[SLICE_SHAPE]
     scans = scan_phase(torch)
     bwd = wkv_bwd_phase(torch)
+    ssd_bwd = ssd_bwd_phase(torch)
     model_check_phase(torch)
     train_check_phase(torch)
     served = {kname: serve_phase(torch, arch, overrides, kname)
               for arch, overrides, kname in SERVES}
-    trained = {arch: full_train_phase(torch, arch) for arch in TRAINS}
+    trained = {arch: full_train_phase(torch, arch, n_layers)
+               for arch, n_layers in TRAINS.items()}
     check(trained["rwkv6-3b"]["bwd"] > 0, "wkv_scan_bwd did not launch in "
           "rwkv6-3b training")
+    check(trained["zamba2-7b"]["bwd"] > 0, "ssd_scan_bwd did not launch in "
+          "zamba2-7b training")
 
     k_ms, p_ms, b_ms, b_by = timings[("batched", 32, 200, 100)]
     print(f"shares of bound (every one <= {SHARE_MAX}):",
@@ -1613,7 +1874,16 @@ def main() -> int:
         "launches": trained["rwkv6-3b"]["bwd"], "max_abs_err": bwd["err"],
         "ms": bwd["ms"], "plain_ms": bwd["plain_ms"],
         "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
-        "library_ms": None}]}, allow_nan=False))
+        "library_ms": None}, {
+        "name": "ssd_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:75 (no TPU kernel: jax.grad "
+                    "of ssd_chunk_scan)",
+        "launches": trained["zamba2-7b"]["bwd"],
+        "max_abs_err": ssd_bwd["err"], "ms": ssd_bwd["ms"],
+        "plain_ms": ssd_bwd["plain_ms"], "bound_ms": ssd_bwd["bound_ms"],
+        "bound_by": ssd_bwd["bound_by"], "library_ms": None}]},
+        allow_nan=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}},
         allow_nan=False))

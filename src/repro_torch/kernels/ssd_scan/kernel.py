@@ -1,9 +1,12 @@
-"""CUDA build, binding and launch wrapper of `csrc/ssd_scan.cu`.
+"""CUDA build, binding and launch wrappers of `csrc/ssd_scan.cu` and of
+its backward, `csrc/ssd_scan_bwd.cu`.
 
-Replaces `ssd_scan` of `repro/kernels/ssd_scan/kernel.py`. The source is
-built with nvcc for sm_90a at first launch through `kernels/_build.py`;
-nothing is built or loaded at import. Every launch adds one to
-`KERNEL.launches`.
+Replaces `ssd_scan` of `repro/kernels/ssd_scan/kernel.py`. The sources
+are built with nvcc for sm_90a at first launch through
+`kernels/_build.py`; nothing is built or loaded at import. Every launch
+adds one to `KERNEL.launches`. The backward has no TPU counterpart (the
+reference takes jax.grad of its jnp scan); it is its own library with
+its own count, `KERNEL_BWD.launches`, one a call of its seven kernels.
 """
 from __future__ import annotations
 
@@ -18,6 +21,10 @@ KERNEL = CudaLibrary("ssd_scan.cu", "ssd_scan", {
     "ssd_scan_launch": ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                         + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
                         ctypes.c_int)})
+KERNEL_BWD = CudaLibrary("ssd_scan_bwd.cu", "ssd_scan_bwd", {
+    "ssd_scan_bwd_launch": ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 7
+                            + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
+                            ctypes.c_int)})
 CHUNK = 128          # the TPU kernel's chunk; also the largest supported
                      # and the edge of the kernel's C B^T tiles
 MAX_HD = MAX_DS = 64
@@ -59,10 +66,17 @@ def ssd_scan(x, dt, A_log, B, C, D, *, chunk=CHUNK):
     """x: (Bb, S, nh, hd) contiguous; dt: (Bb, S, nh) fp32; B, C: (Bb, S,
     ds), unit channel stride (views of one tensor are fine); A_log, D:
     (nh,) fp32; S a multiple of min(chunk, S). Returns (y (Bb, S, nh, hd)
-    of x's dtype, h_final (Bb, nh, hd, ds) fp32). One launch (one count)
-    runs the source's four kernels on the fp32 scratch allocated here:
-    C B^T tiles, the chunk states (Bb nh S / Q hd ds floats) and the
-    chunks' decays."""
+    of x's dtype, h_final (Bb, nh, hd, ds) fp32). One launch (one count)."""
+    return ssd_scan_fwd(x, dt, A_log, B, C, D, chunk=chunk)[:2]
+
+
+def ssd_scan_fwd(x, dt, A_log, B, C, D, *, chunk=CHUNK):
+    """`ssd_scan` that also returns the chunk states, the backward's
+    input: (y, h_final, states (Bb, nh, S / Q, hd, ds) fp32). One launch
+    (one count) runs the source's four kernels on the fp32 scratch
+    allocated here: C B^T tiles, the chunk states and the chunks' decays.
+    The state pass leaves the chunk states holding the state entering
+    each chunk."""
     Q, code = _check(x, dt, A_log, B, C, D, chunk)
     Bb, S, nh, hd = x.shape
     ds = B.shape[-1]
@@ -82,4 +96,69 @@ def ssd_scan(x, dt, A_log, B, C, D, *, chunk=CHUNK):
             B.stride(0), B.stride(1),
             at=f"(Bb, S, nh, hd, ds, Q) = {(Bb, S, nh, hd, ds, Q)}, "
                f"{x.dtype}")
-    return y, hT
+    return y, hT, states
+
+
+def ssd_scan_bwd(x, dt, A_log, B, C, D, states, dy, dhT=None, *,
+                 chunk=CHUNK):
+    """Gradients of `ssd_scan` (the plain version is
+    `ref.ssd_scan_bwd_ref`). x, dt, A_log, B, C, D as `ssd_scan` takes
+    them; states: the chunk states `ssd_scan_fwd` returned for the same
+    inputs and chunk; dy (Bb, S, nh, hd) contiguous of x's dtype; dhT
+    (Bb, nh, hd, ds) fp32 or None (zeros). Returns (dx of x's dtype, ddt
+    (Bb, S, nh) fp32, dA_log (nh,) fp32, dB, dC (Bb, S, ds) contiguous of
+    x's dtype, dD (nh,) fp32). One launch (one count of `KERNEL_BWD`)
+    runs the source's seven kernels on the fp32 scratch allocated here:
+    the gradient's chunk states and the chunks' decays, the per-head parts
+    of dB and dC, three per-step sums and the per-chunk parts of dA_log
+    and dD; the same inputs give the same bits."""
+    if x.dim() != 4 or B.dim() != 3:
+        _check(x, dt, A_log, B, C, D, chunk)     # raises
+    Bb, S, nh, hd = x.shape
+    ds = B.shape[-1]
+    nc = S // max(min(chunk, S), 1)
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"ssd_scan_bwd: dy must be {tuple(x.shape)} "
+                         f"{x.dtype}, got {tuple(dy.shape)} {dy.dtype}")
+    if tuple(states.shape) != (Bb, nh, nc, hd, ds):
+        raise ValueError(f"ssd_scan_bwd: states must be "
+                         f"{(Bb, nh, nc, hd, ds)}, got "
+                         f"{tuple(states.shape)}")
+    if dhT is not None and tuple(dhT.shape) != (Bb, nh, hd, ds):
+        raise ValueError(f"ssd_scan_bwd: dhT must be {(Bb, nh, hd, ds)}, "
+                         f"got {tuple(dhT.shape)}")
+    grads = {} if dhT is None else {"dhT": dhT}
+    check_fp32("ssd_scan_bwd", states=states, **grads)
+    Q, code = _check(x, dt, A_log, B, C, D, chunk)
+    check_cuda("ssd_scan_bwd", x=x, dy=dy, states=states, **grads)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((Bb, S, nh), **f32)
+    dA_log = torch.zeros((nh,), **f32)
+    dB = torch.empty((Bb, S, ds), dtype=x.dtype, device=x.device)
+    dC = torch.empty_like(dB)
+    dD = torch.zeros((nh,), **f32)
+    if Bb * nh:
+        dstate = torch.empty((Bb, nh, nc, hd, ds), **f32)
+        decay = torch.empty((Bb, nh, nc), **f32)
+        dBpart = torch.empty((Bb, nh, S, ds), **f32)
+        dCpart = torch.empty_like(dBpart)
+        rows = torch.empty((3, Bb, nh, S), **f32)
+        dApart = torch.empty((Bb, nc, nh), **f32)
+        dDpart = torch.empty_like(dApart)
+        KERNEL_BWD.launch(
+            "ssd_scan_bwd_launch", x.device, x.data_ptr(), dt.data_ptr(),
+            A_log.data_ptr(), B.data_ptr(), C.data_ptr(), D.data_ptr(),
+            states.data_ptr(), dy.data_ptr(),
+            None if dhT is None else dhT.data_ptr(), dx.data_ptr(),
+            ddt.data_ptr(), dA_log.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+            dD.data_ptr(), dstate.data_ptr(), decay.data_ptr(),
+            dBpart.data_ptr(), dCpart.data_ptr(), rows.data_ptr(),
+            dApart.data_ptr(), dDpart.data_ptr(), code, Bb, S, nh, hd, ds, Q,
+            B.stride(0), B.stride(1),
+            at=f"(Bb, S, nh, hd, ds, Q) = {(Bb, S, nh, hd, ds, Q)}, "
+               f"{x.dtype}")
+    else:
+        dB.zero_()
+        dC.zero_()
+    return dx, ddt, dA_log, dB, dC, dD

@@ -5,7 +5,9 @@ A train step updates the parameters and the optimizer state in place
 and returns the loss. Microbatches are the reference's strided split of
 the batch (row i goes to microbatch i % microbatches), with fp32
 gradient accumulation; with one microbatch the gradients keep the
-parameters' dtype, as `jax.value_and_grad` gives them. The MoE
+parameters' dtype, as `jax.value_and_grad` gives them. The dense, ssm
+(rwkv6) and hybrid (zamba2) families train, on the card through the
+scans' CUDA backward kernels (wkv_scan_bwd, ssd_scan_bwd). The MoE
 router's aux loss is not ported (the moe family raises).
 """
 from __future__ import annotations

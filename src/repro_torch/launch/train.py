@@ -7,9 +7,11 @@
 Presets scale the architecture's family down while keeping its
 structure, as the reference's do; `full` is the architecture's own
 config (on the card). Entry points run on `cuda` unless asked for the
-CPU, and raise without CUDA. On the card every rwkv6 layer's scan runs
-the wkv_scan kernel forward and its backward kernel. Checkpoints go
-through `repro_torch.checkpoint` in the reference's format.
+CPU, and raise without CUDA. The dense, ssm (rwkv6) and hybrid (zamba2)
+families train; on the card every rwkv6 layer's scan runs the wkv_scan
+kernel forward and its backward kernel, and every Mamba2 layer's the
+ssd_scan kernel and its backward kernel. Checkpoints go through
+`repro_torch.checkpoint` in the reference's format.
 """
 from __future__ import annotations
 
@@ -52,14 +54,19 @@ def scaled_config(arch: str, preset: str):
 
 def train(arch: str, preset: str, steps: int, batch: int, seq: int,
           lr: float = 3e-4, log_every: int = 10, ckpt_dir: str | None = None,
-          seed: int = 0, *, device=None, microbatches: int = 1):
+          seed: int = 0, *, device=None, microbatches: int = 1,
+          n_layers: int | None = None):
     """Train `arch` at `preset` for `steps` adamw steps (weight decay
     0.01, warmup_cosine) on `TokenPipeline(seed=seed)` batches, from
     parameters drawn on the CPU from `seed` and moved to the device (so
-    every device starts from the same weights). Returns (params, losses,
-    cfg, seconds): each step's seconds end after its loss is read back."""
+    every device starts from the same weights). `n_layers` cuts the
+    preset's depth (its width stays).
+    Returns (params, losses, cfg, seconds): each step's seconds end after
+    its loss is read back."""
     device = resolve_device(device)
     cfg = scaled_config(arch, preset)
+    if n_layers is not None:
+        cfg = cfg.replace(n_layers=n_layers)
     params = tf.init_params(cfg, torch.Generator().manual_seed(seed))
     params = params.to(device)
     n_params = steps_mod.count_params(params)

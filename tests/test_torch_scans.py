@@ -209,6 +209,18 @@ def _split(v, n):
     return out
 
 
+def test_split_into_three_terms_is_exact():
+    """Three bf16 terms hold a float32's 24 bits: they sum back to it
+    exactly, over the exponents a scan's operands take, which is why the
+    ssd backward's da kernel may take x . dy from its staged terms."""
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy((rng.standard_normal(1 << 16)
+                          * 2.0 ** rng.integers(-30, 30, 1 << 16))
+                         .astype(np.float32))
+    t0, t1, t2 = _split(v, 3)
+    assert torch.equal(t2 + t1 + t0, v)
+
+
 def _mm_terms(a, b, na, nb, k_axis_a=-1):
     """sum_k a[..., k] b[k, ...] over k steps of 16 as the kernel sums it:
     each step's products of the terms i, j with i + j <= 2 (a in na, b in
@@ -228,14 +240,15 @@ def _mm_terms(a, b, na, nb, k_axis_a=-1):
     return acc
 
 
-def _ssd_emulated(x, dt, A_log, B, C, D, n_in, Q=128):
+def _ssd_emulated(x, dt, A_log, B, C, D, n_in, Q=128, states=False):
     """The CUDA ssd_scan's arithmetic in float32 torch on one batch row:
     C B^T once a chunk, the chunk states, the sequential state pass and
     the chunk outputs, with every fp32 factor split into 3 bf16 terms and
     x, B, C into n_in (1: bf16 inputs, exact; 3: fp32). cum is double; a
     decay exp(cum_i - cum_j) is taken from cum as a float pair hi + lo.
     x (S, nh, hd), dt (S, nh), B/C (S, ds) -> y (S, nh, hd) before the
-    output rounding."""
+    output rounding; with `states`, also the states entering the chunks
+    (nh, nc, hd, ds), the forward kernel's scratch, and h_T."""
     S, nh, hd = x.shape
     nc = S // Q
     xc = x.reshape(nc, Q, nh, hd).permute(2, 0, 1, 3)      # (nh, nc, Q, hd)
@@ -265,7 +278,8 @@ def _ssd_emulated(x, dt, A_log, B, C, D, n_in, Q=128):
                       n_in, 3)
     y = y_in + torch.exp(cum.float())[..., None] * y_out + \
         xc * D[:, None, None, None]
-    return y.permute(1, 2, 0, 3).reshape(S, nh, hd)
+    y = y.permute(1, 2, 0, 3).reshape(S, nh, hd)
+    return (y, hp, h) if states else y
 
 
 def _ssd_float64(x, dt, A_log, B, C, D):
@@ -297,6 +311,248 @@ def test_ssd_kernel_arithmetic_against_float64(dtype):
     want = _ssd_float64(x[0], dt[0], A_log, B[0], C[0], D)
     err = float((got.double() - want).abs().max() / want.abs().max())
     assert err < 1e-6, err
+
+
+def _ssd_grads_float64(x, dt, A_log, B, C, D, dy, dhT):
+    """torch.autograd of the float64 recurrence (all batch rows): the
+    gradients of sum(y dy) + sum(h_T dhT) (dhT None: zeros) with respect
+    to x, dt, A_log, B, C and D."""
+    ins = [a.detach().double().requires_grad_() for a in
+           (x, dt, A_log, B, C, D)]
+    xd, dtd, ad, bd, cd, Dd = ins
+    A = -torch.exp(ad)
+    h = torch.zeros(x.shape[0], x.shape[2], x.shape[3], B.shape[-1],
+                    dtype=torch.float64)
+    ys = []
+    for t in range(x.shape[1]):
+        h = h * torch.exp(dtd[:, t] * A)[:, :, None, None] \
+            + (dtd[:, t, :, None] * xd[:, t])[..., None] * bd[:, t, None, None]
+        ys.append(torch.einsum("bhds,bs->bhd", h, cd[:, t]))
+    y = torch.stack(ys, 1) + xd * Dd[None, None, :, None]
+    loss = (y * dy.double()).sum()
+    if dhT is not None:
+        loss = loss + (h * dhT.double()).sum()
+    return torch.autograd.grad(loss, ins)
+
+
+SSD_GRADS = ("dx", "ddt", "dA_log", "dB", "dC", "dD")
+
+
+def _ssd_strong(dt, A_log, seed):
+    """dt up to 4 and A_log up to 1.5: a per-step log decay down to -18."""
+    rng = np.random.default_rng(seed)
+    dt = torch.as_tensor(rng.uniform(3.0, 4.0, dt.shape).astype(np.float32))
+    A_log = torch.as_tensor(rng.uniform(1.0, 1.5, A_log.shape)
+                            .astype(np.float32))
+    return dt, A_log
+
+
+@pytest.mark.parametrize("with_dhT", [False, True])
+@pytest.mark.parametrize("strong", [False, True])
+def test_ssd_bwd_ref_matches_float64_autograd(strong, with_dhT):
+    """The plain ssd backward (the reverse recurrence written out, its
+    states kept a segment at a time) against torch.autograd of the
+    float64 recurrence, with and without a gradient on h_T, at the
+    tests' decays and at a per-step log decay down to -18: every gradient
+    within 1e-6 of its largest entry (fp32 sums over S = 160 steps, three
+    segments)."""
+    x, dt, A_log, B, C, D = _t(ssd_inputs(40, 2, 160, 3, 16, 8))
+    if strong:
+        dt, A_log = _ssd_strong(dt, A_log, 41)
+    D = D * 0.7
+    rng = np.random.default_rng(42)
+    dy = torch.as_tensor(rng.standard_normal(x.shape).astype(np.float32))
+    dhT = torch.as_tensor(rng.standard_normal((2, 3, 16, 8))
+                          .astype(np.float32)) if with_dhT else None
+    got = sref.ssd_scan_bwd_ref(x, dt, A_log, B, C, D, dy, dhT)
+    assert [g.dtype for g in got] == [torch.float32] * 6
+    assert [tuple(g.shape) for g in got] == [
+        tuple(x.shape), tuple(dt.shape), (3,), tuple(B.shape),
+        tuple(C.shape), (3,)]
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _hold_grads(got, _ssd_grads_float64(x, dt, A_log, B, C, D, dy, dhT),
+                1e-6, (strong, with_dhT), SSD_GRADS)
+
+
+def test_ssd_ops_gradient_on_cpu_through_the_padding():
+    """On CPU tensors ops.ssd_scan is the plain forward, which autograd
+    differentiates: at S = 300, padded to 384 with chunk 128, the
+    gradients, with B and C views of one tensor as the model passes them,
+    equal the plain backward's on the unpadded inputs (the padded steps
+    take none)."""
+    x, dt, A_log, B, C, D = _t(ssd_inputs(43, 1, 300, 2, 8, 4))
+    rng = np.random.default_rng(44)
+    dy = torch.as_tensor(rng.standard_normal(x.shape).astype(np.float32))
+    dhT = torch.as_tensor(rng.standard_normal((1, 2, 8, 4))
+                          .astype(np.float32))
+    bc = torch.cat([B, C], -1).requires_grad_()
+    ins = [a.clone().requires_grad_() for a in (x, dt, A_log, D)]
+    Bv, Cv = torch.split(bc, 4, dim=-1)
+    y, hT = sops.ssd_scan(ins[0], ins[1], ins[2], Bv, Cv, ins[3], chunk=128)
+    assert y.shape == x.shape
+    got = torch.autograd.grad((y * dy).sum() + (hT * dhT).sum(),
+                              ins + [bc])
+    want = sref.ssd_scan_bwd_ref(x, dt, A_log, B, C, D, dy, dhT)
+    got = [got[0], got[1], got[2], got[4][..., :4], got[4][..., 4:], got[3]]
+    _hold_grads(got, want, 1e-5, names=SSD_GRADS)
+
+
+def _ssd_bwd_emulated(x, dt, A_log, B, C, D, dy, dhT, n_in, Q=128,
+                      split=True):
+    """The arithmetic of the CUDA ssd_scan backward in float32 torch on
+    one batch row, from the forward kernel's chunk states
+    (`_ssd_emulated`): cum in double, every decay exp(cum_i - cum_j) with
+    j <= i (or exp(cum_Q - cum_j), exp(cum_j)) from cum as a float pair,
+    so no factor exceeds 1. The gradient's chunk states ds_c = sum_k
+    e^{cum_k} dy_k C_k^T and the reverse pass over chunks give dH_c, the
+    gradient of the state a chunk leaves. Then three passes of one shape,
+    each out[r] = sum over pairs m (m > r for dx and dB, m < r for dC,
+    the pair r = m apart) of (U_r . W_m) f(r, m) Z_m, plus the pair r = m,
+    plus g(r) U_r H: dx (U, W, Z, H = B, C, dy, dH^T), dB (x, dy, C, dH)
+    and dC (dy, x, B, h_{c-1}), each fp32 factor split into 3 bf16 terms
+    and x, dy, B, C into n_in (1: bf16, exact; 3: fp32). ddt is x . (G B)
+    plus A da: da_t sums the pairs j < t <= i of T[i, j] = (dy_i . x_j)
+    (C_i . B_j) e^{cum_i - cum_j} dt_j (each row's prefix over j, then a
+    sum over i >= t; the pairs i = j, whose exponent is 0, count nowhere)
+    and adds, in double, a suffix sum of C . dC_h, a prefix sum of dt x .
+    dx_h (the chunk-state side; its last term, exponent 0, counts
+    nowhere) and e^{cum_Q} <dH_c, h_{c-1}>. dB and dC are summed over
+    heads in double. `split=False` takes every product in plain float32 (the
+    algebra alone). x, dy (S, nh, hd), dt (S, nh), B/C (S, ds), dhT (nh,
+    hd, ds) or None -> [dx (S, nh, hd), ddt (S, nh), dA_log (nh,), dB, dC
+    (S, ds), dD (nh,)] before any output rounding."""
+    S, nh, hd = x.shape
+    ds = B.shape[-1]
+    nc = S // Q
+    mm = _mm_terms if split else (lambda a, b, na, nb: a @ b)
+    _, hp, _ = _ssd_emulated(x, dt, A_log, B, C, D, n_in, Q, states=True)
+    xc = x.reshape(nc, Q, nh, hd).permute(2, 0, 1, 3)      # (nh, nc, Q, hd)
+    dyc = dy.reshape(nc, Q, nh, hd).permute(2, 0, 1, 3)
+    dtc = dt.reshape(nc, Q, nh).permute(2, 0, 1)           # (nh, nc, Q)
+    Bc, Cc = B.reshape(nc, Q, ds), C.reshape(nc, Q, ds)
+    A = -torch.exp(A_log.double())
+    cum = torch.cumsum(dtc.double() * A[:, None, None], -1)
+    hi = cum.float()
+    lo = (cum - hi.double()).float()
+    r, m = torch.arange(Q)[:, None], torch.arange(Q)[None, :]
+
+    def decay(later, earlier, mask):            # exp(cum_later - cum_earlier)
+        ex = (hi[..., later] - hi[..., earlier]) + (lo[..., later]
+                                                    - lo[..., earlier])
+        return torch.exp(torch.where(mask, ex, float("-inf")))
+    anti = decay(m.expand(Q, Q), r.expand(Q, Q), m > r)    # [r, m], m > r
+    causal = decay(r.expand(Q, Q), m.expand(Q, Q), m < r)  # [r, m], m < r
+    eQ = torch.exp((cum[..., -1:] - cum).float())          # (nh, nc, Q)
+    ecum = torch.exp(cum.float())
+    # 1-2. the gradient's chunk states and the reverse pass
+    dsc = mm((dyc * ecum[..., None]).transpose(-1, -2), Cc, 3, n_in)
+    decay_c = torch.exp(cum[..., -1].float())             # (nh, nc)
+    dH = torch.zeros(nh, hd, ds) if dhT is None else dhT.clone()
+    dHc = [None] * nc
+    for c in reversed(range(nc)):
+        dHc[c] = dH
+        dH = dH * decay_c[:, c, None, None] + dsc[:, c]
+    dHs = torch.stack(dHc, 1)                              # (nh, nc, hd, ds)
+    # 3. the three passes
+    xdy = (xc * dyc).sum(-1)                               # (nh, nc, Q)
+    xdy64 = (xc.double() * dyc.double()).sum(-1)   # the da kernel's
+    bcd = (Bc * Cc).sum(-1)                                # (nc, Q)
+    Bh, Ch = Bc.expand(nh, -1, -1, -1), Cc.expand(nh, -1, -1, -1)
+    # dx: U = B, W = C, Z = dy, H = dH^T; f = exp(cum_m - cum_r)
+    P = mm(Bc, Cc.transpose(-1, -2), n_in, n_in) * anti
+    x_strict = mm(P, dyc, 3, n_in)
+    x_inter = eQ[..., None] * mm(Bh, dHs.transpose(-1, -2), n_in, 3)
+    dxs = x_strict + x_inter + bcd[..., None] * dyc
+    dx = dtc[..., None] * dxs + D[:, None, None, None] * dyc
+    s0 = (xc * x_strict).sum(-1)
+    s1 = (xc * x_inter).sum(-1)
+    # dB: U = x, W = dy, Z = C, H = dH; f = exp(cum_m - cum_r) dt_r
+    P = mm(xc, dyc.transpose(-1, -2), n_in, n_in) * anti \
+        * dtc[..., :, None]
+    dBp = mm(P, Ch, 3, n_in) + (dtc * eQ)[..., None] * mm(xc, dHs, n_in, 3) \
+        + (xdy * dtc)[..., None] * Cc
+    # dC: U = dy, W = x, Z = B, H = h_{c-1}; f = exp(cum_r - cum_m) dt_m
+    P = mm(dyc, xc.transpose(-1, -2), n_in, n_in) * causal \
+        * dtc[..., None, :]
+    c_inter = ecum[..., None] * mm(dyc, hp, n_in, 3)
+    dCp = mm(P, Bh, 3, n_in) + c_inter + (xdy * dtc)[..., None] * Bc
+    s4 = (Cc * c_inter).sum(-1)
+    # 4. da: the pairs j < t <= i of T[i, j] = (dy_i . x_j) (C_i . B_j)
+    # e^{cum_i - cum_j} dt_j, row by row a prefix over j, then for each t
+    # a sum over i >= t (no pair is added and taken away again); a suffix
+    # sum of C . dC_h and a prefix sum of dt x . dx_h in double; and
+    # e^{cum_Q} <dH_c, h_{c-1}>
+    T = mm(dyc, xc.transpose(-1, -2), n_in, n_in) \
+        * mm(Cc, Bc.transpose(-1, -2), n_in, n_in) * causal \
+        * dtc[..., None, :]
+    rp = torch.cumsum(T, -1) - T                           # sum over j < t
+    da_in = torch.where(r >= m, rp, 0.0).double().sum(-2)  # over i >= t
+    E = decay_c.double() * (dHs * hp).double().sum((-1, -2))  # (nh, nc)
+    suf = s4.double().flip(-1).cumsum(-1).flip(-1)
+    pre = torch.cumsum(dtc.double() * s1.double(), -1) \
+        - dtc.double() * s1.double()
+    da = da_in + suf + pre + E[..., None]
+    ddt = ((s0 + s1 + bcd * xdy64.float()).double()
+           + A[:, None, None] * da).float()
+    dA = (A * (dtc.double() * da).sum((-1, -2))).float()
+    dD = xdy64.sum(-1).float().double().sum(-1).float()   # chunk parts
+    # 5. dB and dC summed over heads
+    dB = dBp.double().sum(0).float().reshape(S, ds)
+    dC = dCp.double().sum(0).float().reshape(S, ds)
+    dx = dx.permute(1, 2, 0, 3).reshape(S, nh, hd)
+    ddt = ddt.permute(1, 2, 0).reshape(S, nh)
+    return [dx, ddt, dA, dB, dC, dD]
+
+
+@pytest.mark.parametrize("dtype,strong", [("float32", False),
+                                          ("bfloat16", False),
+                                          ("float32", True)])
+def test_ssd_bwd_kernel_arithmetic_against_float64(dtype, strong):
+    """The CUDA ssd_scan backward's chunk decomposition, operand splits
+    and per-step sums, emulated in float32 torch, give every gradient
+    finite and within 1e-5 of its largest entry of autograd of a float64
+    recurrence, at chunk 128 over (1, 512, 2, 64, 64) with a gradient on
+    h_T: the accuracy argument of csrc/ssd_scan_bwd.cu, checked before
+    any card, also at a per-step log decay down to -18, where the decayed
+    parts of ddt are tiny against its direct part and a chunk decays by
+    e^-2300. bf16 inputs (and dy) are rounded first."""
+    x, dt, A_log, B, C, D = (torch.as_tensor(a) for a in
+                             ssd_inputs(45, 1, 512, 2, 64, 64))
+    if strong:
+        dt, A_log = _ssd_strong(dt, A_log, 46)
+    rng = np.random.default_rng(47)
+    dy = torch.as_tensor(rng.standard_normal(x.shape).astype(np.float32))
+    dhT = torch.as_tensor(rng.standard_normal((1, 2, 64, 64))
+                          .astype(np.float32))
+    x, B, C, dy = (a.to(getattr(torch, dtype)).float() for a in (x, B, C, dy))
+    got = _ssd_bwd_emulated(x[0], dt[0], A_log, B[0], C[0], D, dy[0],
+                            dhT[0], n_in=3 if dtype == "float32" else 1)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    want = _ssd_grads_float64(x, dt, A_log, B, C, D, dy, dhT)
+    want = [want[0][0], want[1][0], want[2], want[3][0], want[4][0],
+            want[5]]
+    _hold_grads(got, want, 1e-5, (dtype, strong), SSD_GRADS)
+
+
+def test_ssd_bwd_chunked_algebra_matches_plain_backward():
+    """The backward's chunked algebra without the operand splits, at
+    chunk 32 over three chunks of (2, 96, 3, 16, 8) with a gradient on
+    h_T, batch row by batch row: within 1e-6 of each gradient's largest
+    entry of the plain backward (the reverse recurrence)."""
+    x, dt, A_log, B, C, D = _t(ssd_inputs(48, 2, 96, 3, 16, 8))
+    rng = np.random.default_rng(49)
+    dy = torch.as_tensor(rng.standard_normal(x.shape).astype(np.float32))
+    dhT = torch.as_tensor(rng.standard_normal((2, 3, 16, 8))
+                          .astype(np.float32))
+    rows = [_ssd_bwd_emulated(x[b], dt[b], A_log, B[b], C[b], D, dy[b],
+                              dhT[b], n_in=3, Q=32, split=False)
+            for b in range(2)]
+    got = [torch.stack([g[n] for g in rows]) for n in (0, 1)] + [
+        rows[0][2] + rows[1][2]] + [
+        torch.stack([g[n] for g in rows]) for n in (3, 4)] + [
+        rows[0][5] + rows[1][5]]
+    _hold_grads(got, sref.ssd_scan_bwd_ref(x, dt, A_log, B, C, D, dy, dhT),
+                1e-6, names=SSD_GRADS)
 
 
 def _wkv_emulated(r, k, v, logw, u, s0, n_in, Q=64, SB=16, states=False):
@@ -437,8 +693,8 @@ def _wkv_grads_float64(r, k, v, logw, u, s0, dy, dsT):
 WKV_GRADS = ("dr", "dk", "dv", "dlogw", "du", "ds0")
 
 
-def _hold_grads(got, want, rel, what=""):
-    for name, g, w in zip(WKV_GRADS, got, want):
+def _hold_grads(got, want, rel, what="", names=WKV_GRADS):
+    for name, g, w in zip(names, got, want):
         w = w.double().cpu()
         err = float((g.double().cpu() - w).abs().max() / w.abs().max())
         assert err < rel, (what, name, err)
@@ -898,17 +1154,128 @@ def test_cuda_wkv_gradient_takes_the_backward_kernel(cuda_device, shape,
     _hold_grads(got[3:], want[3:3 + len(got[3:])], 1e-5)
 
 
+def _ssd_grad_case(seed, shape, device, dtype, strong=False):
+    """x, dt, A_log, bc (B and C as one (Bb, S, 2 ds) tensor), D, dy and
+    d h_T from a numpy seed; `strong`: dt in [3, 4] and A_log in [1,
+    1.5]."""
+    Bb, S, nh, hd, ds = shape
+    x, dt, A_log, B, C, D = _t(ssd_inputs(seed, *shape))
+    if strong:
+        dt, A_log = _ssd_strong(dt, A_log, seed + 1)
+    rng = np.random.default_rng(seed + 2)
+    dy = torch.as_tensor(rng.standard_normal(x.shape).astype(np.float32))
+    dhT = torch.as_tensor(rng.standard_normal((Bb, nh, hd, ds))
+                          .astype(np.float32))
+    bc = torch.cat([B, C], -1)
+    out = [a.to(device) for a in (x, dt, A_log, bc, 0.7 * D, dy, dhT)]
+    for i in (0, 3, 5):
+        out[i] = out[i].to(dtype)
+    return out
+
+
+def _hold_ssd_split(got, want, dtype):
+    """dx, dB, dC to 1e-5 of each largest entry in fp32 and to one bf16
+    step at the top of the range in bf16; ddt, dA_log, dD (fp32 in both)
+    to 1e-5."""
+    for idx, rel in (((0, 3, 4), 1e-5 if dtype == "float32" else BF16_Y_REL),
+                     ((1, 2, 5), 1e-5)):
+        _hold_grads([got[i] for i in idx], [want[i] for i in idx], rel,
+                    dtype, [SSD_GRADS[i] for i in idx])
+
+
+@pytest.mark.parametrize("bad", ["cpu", "dy_dtype", "dy_shape", "states",
+                                 "dhT_shape", "dhT_dtype"])
+def test_ssd_bwd_kernel_wrapper_raises(bad):
+    """The backward's CUDA wrapper never falls back: a CPU tensor, a dy of
+    another dtype or shape, chunk states or a d h_T that do not fit raise
+    before any launch."""
+    x, dt, A_log, bc, D, dy, dhT = _ssd_grad_case(50, (1, 64, 2, 32, 16),
+                                                  "cpu", torch.float32)
+    B, C = bc.split(16, dim=-1)
+    states = torch.zeros((1, 2, 1, 32, 16))
+    if bad == "dy_dtype":
+        dy = dy.to(torch.bfloat16)
+    elif bad == "dy_shape":
+        dy = dy[:, :32]
+    elif bad == "states":
+        states = torch.zeros((1, 2, 2, 32, 16))
+    elif bad == "dhT_shape":
+        dhT = dhT[:, :1]
+    elif bad == "dhT_dtype":
+        dhT = dhT.double()
+    match = {"cpu": "CUDA tensor", "dy_dtype": "dy must be",
+             "dy_shape": "dy must be", "states": "states must be",
+             "dhT_shape": "dhT must be", "dhT_dtype": "dhT must be"}[bad]
+    before = skernel.KERNEL_BWD.launches
+    with pytest.raises(ValueError, match=match):
+        skernel.ssd_scan_bwd(x, dt, A_log, B, C, D, states, dy, dhT)
+    assert skernel.KERNEL_BWD.launches == before
+
+
 @pytest.mark.cuda
-def test_cuda_ssd_scan_raises_under_grad(cuda_device):
-    """ssd_scan has no backward kernel yet: on CUDA tensors that require
-    grad, with grad mode on, ops.ssd_scan raises and launches nothing;
-    under no_grad it launches."""
-    x, dt, A_log, B, C, D = _t(ssd_inputs(36, 1, 64, 2, 32, 16), cuda_device)
-    x.requires_grad_()
-    before = skernel.KERNEL.launches
-    with pytest.raises(RuntimeError, match="ssd_scan: the backward"):
-        sops.ssd_scan(x, dt, A_log, B, C, D)
-    assert skernel.KERNEL.launches == before
-    with torch.no_grad():
-        sops.ssd_scan(x, dt, A_log, B, C, D)
-    assert skernel.KERNEL.launches == before + 1
+@pytest.mark.parametrize("with_dhT", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,chunk,strong", [
+    ((2, 256, 4, 64, 64), 128, False), ((1, 100, 2, 32, 16), 64, False),
+    ((2, 300, 3, 64, 64), 128, False), ((1, 40, 2, 16, 8), 128, False),
+    ((2, 256, 2, 64, 64), 128, True)])
+def test_cuda_ssd_gradient_takes_the_backward_kernel(cuda_device, shape,
+                                                     chunk, strong, dtype,
+                                                     with_dhT):
+    """On CUDA tensors that require grad ops.ssd_scan runs the forward
+    kernel inside its autograd Function and the backward kernel once (no
+    plain version), with B and C views of one tensor as ssm_forward passes
+    them, at ragged lengths (S = 100, 300, 40) and at a per-step log
+    decay down to -18: every gradient, with and without a gradient on
+    h_T, agrees with the plain backward on the same inputs (fp32: 1e-5 of
+    each gradient's largest entry; bf16: one bf16 step at the top of the
+    range for dx, dB, dC, rounded to bf16, 1e-5 for the fp32 ddt, dA_log
+    and dD) and is finite; a second backward of the same graph gives the
+    same bits."""
+    dt_ = getattr(torch, dtype)
+    x, dt, A_log, bc, D, dy, dhT = _ssd_grad_case(51, shape, cuda_device,
+                                                  dt_, strong)
+    ds = shape[-1]
+    ins = [a.clone().requires_grad_() for a in (x, dt, A_log, bc, D)]
+    Bv, Cv = ins[3].split(ds, dim=-1)
+    fwd, bwd = skernel.KERNEL.launches, skernel.KERNEL_BWD.launches
+    y, hT = sops.ssd_scan(ins[0], ins[1], ins[2], Bv, Cv, ins[4],
+                          chunk=chunk)
+    assert y.grad_fn is not None and hT.grad_fn is not None
+    outs, gouts = ([y, hT], [dy, dhT]) if with_dhT else ([y], [dy])
+    got = torch.autograd.grad(outs, ins, gouts, retain_graph=True)
+    torch.cuda.synchronize()
+    assert skernel.KERNEL.launches == fwd + 1
+    assert skernel.KERNEL_BWD.launches == bwd + 1
+    again = torch.autograd.grad(outs, ins, gouts)
+    assert skernel.KERNEL_BWD.launches == bwd + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    got = [got[0], got[1], got[2], got[3][..., :ds], got[3][..., ds:],
+           got[4]]
+    assert [g.dtype for g in got] == [dt_] + [torch.float32] * 2 + [
+        dt_] * 2 + [torch.float32]
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    B, C = bc.split(ds, dim=-1)
+    want = sref.ssd_scan_bwd_ref(x, dt, A_log, B, C, D, dy,
+                                 dhT if with_dhT else None)
+    _hold_ssd_split(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_ssd_bwd_kernel_is_deterministic(cuda_device, dtype):
+    """Over 8 chunks of 128 and 16 heads, as a layer calls it (no d h_T):
+    two calls of the backward kernel give the same bits in all six
+    gradients (no atomics; every sum in a fixed order), and the gradients
+    agree with the plain backward."""
+    dt_ = getattr(torch, dtype)
+    x, dt, A_log, bc, D, dy, _ = _ssd_grad_case(52, (2, 1024, 16, 64, 64),
+                                                cuda_device, dt_)
+    B, C = bc.split(64, dim=-1)
+    _, _, states = skernel.ssd_scan_fwd(x, dt, A_log, B, C, D)
+    first = skernel.ssd_scan_bwd(x, dt, A_log, B, C, D, states, dy)
+    second = skernel.ssd_scan_bwd(x, dt, A_log, B, C, D, states, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    want = sref.ssd_scan_bwd_ref(x, dt, A_log, B, C, D, dy)
+    _hold_ssd_split(first, want, dtype)

@@ -3,7 +3,8 @@ Adafactor step (two updates, so the state is used) on the smoke dense
 and hybrid trees, whose stacked leaves are (L, ...) and (n_super, every,
 ...); Adafactor's layer-by-layer branch; the schedules; the first smoke
 losses of qwen2.5-3b at microbatches 1 and 2; the trainer's loss falls;
-rwkv6-3b smoke gradients with a non-zero bonus u.
+rwkv6-3b smoke gradients with a non-zero bonus u; zamba2-7b smoke
+gradients with drawn decays; the trainer's depth cut.
 
 Parameters, gradients and token batches are made by the reference (or
 with numpy from a seed) and carried across with `params_from_jax`, in
@@ -253,6 +254,57 @@ def test_rwkv_smoke_gradients_match_jax_grad():
         scale = float(np.abs(want_f[k]).max())
         np.testing.assert_allclose(got_f[k], want_f[k], rtol=0,
                                    atol=2e-4 * scale + 1e-7, err_msg=k)
+
+
+def test_hybrid_smoke_gradients_match_jax_grad():
+    """zamba2-7b smoke in fp32 with A_log and dt_bias drawn from a numpy
+    seed (the models start them at zeros, one decay for every head):
+    every parameter's gradient of the train-mode loss, the port's through
+    the checkpointed Mamba2 and shared attention blocks and the naive
+    scan, against jax.grad of the reference's loss through its chunked
+    scan. Held to 2e-4 of each leaf's largest |gradient|, atol 1e-7."""
+    jcfg, tcfg = _cfgs("zamba2-7b")
+    jp = _np(jtf.init_params(jcfg, jax.random.PRNGKey(6)))
+    rng = np.random.default_rng(7)
+    for stack in ("m_main", "m_tail"):
+        ssm = jp[stack]["ssm"]
+        ssm["A_log"] = rng.uniform(-0.5, 1.0, ssm["A_log"].shape).astype(
+            np.float32)
+        ssm["dt_bias"] = rng.standard_normal(ssm["dt_bias"].shape).astype(
+            np.float32)
+    hb = next(iter(TokenPipeline(jcfg.vocab, 2, 64, seed=8)))
+    want = jax.grad(_jloss(jcfg))(jp, jnp.asarray(hb["tokens"]),
+                                  jnp.asarray(hb["labels"]))
+    model = ttf.params_from_jax(tcfg, jp)
+    logits, _ = ttf.forward(model, tcfg, torch.as_tensor(hb["tokens"]),
+                            mode="train")
+    cross_entropy(logits, torch.as_tensor(hb["labels"])).backward()
+    grads = copy.deepcopy(model)
+    for p, g in zip(grads.parameters(), model.parameters()):
+        p.data = g.grad
+    got_f = {k: _numpy(v) for k, v in
+             _flat(ttf.params_to_jax(tcfg, grads)).items()}
+    want_f = {k: _numpy(v) for k, v in _flat(want).items()}
+    assert sorted(got_f) == sorted(want_f)
+    for k in ("m_main.ssm.A_log", "m_main.ssm.dt_bias", "m_tail.ssm.A_log"):
+        assert np.abs(want_f[k]).max() > 0
+    for k in want_f:
+        scale = float(np.abs(want_f[k]).max())
+        np.testing.assert_allclose(got_f[k], want_f[k], rtol=0,
+                                   atol=2e-4 * scale + 1e-7, err_msg=k)
+
+
+def test_train_n_layers_cuts_the_depth():
+    """`train(..., n_layers=)` cuts the preset's depth, as chip_smoke.py
+    cuts zamba2-7b's: two steps of the smoke
+    zamba2-7b at 3 layers on the CPU, one super-block of 2 and a tail of
+    1, with finite losses."""
+    params, losses, cfg, _ = train("zamba2-7b", "smoke", steps=2, batch=2,
+                                   seq=32, log_every=100, device="cpu",
+                                   n_layers=3)
+    assert cfg.n_layers == 3
+    assert len(params["m_main"]) == 1 and len(params["m_tail"]) == 1
+    assert all(np.isfinite(losses))
 
 
 def test_train_step_refuses_moe():
