@@ -93,7 +93,9 @@
    through ops.ssd_scan's autograd Function with B and C views of one
    tensor (one forward and one backward launch), at (2, 512, 4, 64, 64)
    in fp32 and bf16, at a per-step log decay down to -18 (dt in [3, 4],
-   A_log in [1, 1.5]) in both, and at a ragged S = 100, each with a
+   A_log in [1, 1.5]) in both, at a ragged S = 100, and with five heads
+   (2, 256, 5, 64, 64: a head group of 4 and a ragged one of 1) and a
+   single chunk (2, 128, 3, 64, 64) in both dtypes, each with a
    gradient on h_T: dx, ddt, dA_log, dB, dC and dD held against the
    plain backward (ref.ssd_scan_bwd_ref) with wkv_scan_bwd's limits
    (2**-7 of max |g| for bf16 dx, dB, dC, 1e-5 otherwise) and, at (2,
@@ -104,9 +106,10 @@
    against the plain backward with the same limits; at the microbatch
    two calls must give the same bits in all six gradients; at both:
    timed in turns against the plain backward, device time from
-   torch.profiler (a call runs seven kernels, ssd_scan_bwd_*; each one's
-   time printed), and the bound (bytes, against twice the forward's
-   least work).
+   torch.profiler (a call runs four kernels, ssd_scan_bwd_*; each one's
+   time printed beside the bytes it moves in the kernel's own design,
+   ssd_bwd_design_bytes, and the rate that gives), and the bound (bytes,
+   against twice the forward's least work).
 8. Model check: the smoke rwkv6-3b and zamba2-7b in fp32, the same
    weights on the card (kernels) and on the CPU (plain versions):
    prefill logits and states agree (atol 3e-4, rtol 1e-3).
@@ -303,7 +306,7 @@ def device_ms(torch, fn, iters=50, name="ensemble_fitness_kernel"):
     `name`, per call; every kernel of the calls, per call; the number of
     their launches recorded; {kernel: its mean per recorded launch}),
     times in ms, None where the profiler saw no device time. A call runs
-    each kernel of `name` once (ssd_scan and wkv_scan_bwd run four,
+    each kernel of `name` once (ssd_scan and both backwards run four,
     wkv_scan three), so a call's time is the sum over those kernels of
     each one's mean per recorded launch: the profiler may drop records of
     long kernels on this machine, and this sum equals the total over the
@@ -1231,6 +1234,27 @@ def ssd_bwd_cost(Bb, S, nh, hd, ds, elem_bytes):
             ssd_cost(Bb, S, nh, hd, ds, elem_bytes).items()}
 
 
+def ssd_bwd_design_bytes(Bb, S, nh, hd, ds, elem_bytes, G, Q=128):
+    """The bytes each kernel of the ssd_scan backward moves in its own
+    design (csrc/ssd_scan_bwd.cu's header), each tensor it reads or
+    writes counted once, no d h_T: {kernel: bytes}. The chunk states (the
+    gradient's and the forward's) are fp32 (Bb, nh, S / Q, hd, ds), the
+    head groups' parts of dB and dC fp32 (Bb, ceil(nh / G), S, ds)."""
+    nc = S // Q
+    act = elem_bytes * Bb * S * nh * hd        # x, dy or dx
+    bc = elem_bytes * Bb * S * ds              # B, C, dB or dC
+    states = 4 * Bb * nh * nc * hd * ds        # one chunk-state tensor
+    step = 4 * Bb * S * nh                     # dt or ddt
+    decay = 4 * Bb * nh * nc
+    parts = 4 * Bb * -(-nh // G) * S * ds      # dB's or dC's group parts
+    chunk = 4 * Bb * nc * nh                   # dA_log's or dD's chunk parts
+    return {"state": act + bc + step + states + decay,
+            "pass": 2 * states + decay,
+            "chunk": (3 * act + 2 * bc + 2 * step + 2 * states + 2 * parts
+                      + 2 * chunk + 8 * nh),
+            "sum": 2 * parts + 2 * bc + 2 * chunk + 12 * nh}
+
+
 def ssd_bwd_case(torch, gen, Bb, S, nh, hd, ds, dtype, strong=False):
     """x, dt, A_log, bc (B and C as one (Bb, S, 2 ds) tensor, as
     ssm_forward makes them), D, dy and d h_T; `strong`: dt in [3, 4] and
@@ -1279,7 +1303,10 @@ def ssd_bwd_phase(torch):
     cases = [(SSD_BWD_CHECK, d, False) for d in ("float32", "bfloat16")] + [
         ((2, 256, 2, 64, 64), "float32", True),
         ((2, 256, 2, 64, 64), "bfloat16", True),
-        ((2, 100, 2, 32, 16), "float32", False)]
+        ((2, 100, 2, 32, 16), "float32", False)] + [
+        (shape, d, False) for shape in ((2, 256, 5, 64, 64),
+                                        (2, 128, 3, 64, 64))
+        for d in ("float32", "bfloat16")]
     for shape, dtype, strong in cases:
         x, dt, A_log, bc, D, dy, dhT = ssd_bwd_case(torch, gen, *shape,
                                                     dtype, strong)
@@ -1389,8 +1416,20 @@ def ssd_bwd_phase(torch):
               f"bf16 products each and {tc_flops} exact bf16 FLOP), share "
               f"{b_ms / k_ms:.4f}; no single PyTorch call computes this "
               "function (library: none)")
+        G = sk.heads_per_block(shape[0], shape[2], shape[1] // 128,
+                               torch.cuda.get_device_properties(0)
+                               .multi_processor_count)
+        design = ssd_bwd_design_bytes(*shape, 2, G)
+        moved = sum(design.values())
+        print(f"  its own design moves {moved} bytes at G = {G} heads a "
+              f"chunk block, {1e3 * moved / PEAK_BYTES:.6f} ms at "
+              f"{PEAK_BYTES / 1e12} TB/s")
         for key, ms in parts.items():
-            print(f"    {ms:.6f} ms a launch  {key[:90]}")
+            own = next((k for k in design if f"ssd_scan_bwd_{k}" in key),
+                       None)
+            rate = ("" if own is None else f"; {design[own]} bytes, "
+                    f"{design[own] / ms / 1e6:.1f} GB/s")
+            print(f"    {ms:.6f} ms a launch  {key[:90]}{rate}")
         out[shape] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
                           bound_by=b_by, device_ms=own_ms)
         if shape == SSD_SLICE:

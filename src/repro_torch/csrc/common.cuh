@@ -4,9 +4,9 @@
 // bf16 packing, mma.sync and ldmatrix for the kernels that use them; and
 // the scans' tensor-core toolkit (ssd_scan.cu, wkv_scan.cu): fp32 factors
 // split into bf16 terms, a tile loader that keeps its 16-byte loads in
-// flight, ldmatrix lane addresses and term-by-term products; and, in
-// namespace wkv, what the wkv scan and its backward share (per-channel
-// step loads, cumsums in double, a scattered warp reduction).
+// flight, ldmatrix lane addresses, term-by-term products and a
+// scattered warp reduction; and, in namespace wkv, what the wkv scan and
+// its backward share (per-channel step loads, cumsums in double).
 #pragma once
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -232,6 +232,40 @@ __device__ __forceinline__ void mma_terms(float (&st)[4][4],
   }
 }
 
+// One level of warp_reduce_scatter: lanes whose bit `32 W / N` is set
+// keep v[W..2W) and send v[0..W), the others the reverse, then the next
+// level on the W they kept. W is a template constant, so that every index
+// of v is one: with a loop bound that changes by level, nvcc leaves the
+// loop rolled and indexes v through chains of predicated moves.
+template <int W, int N, typename V>
+__device__ __forceinline__ void reduce_level(V (&v)[N], int lane) {
+  if constexpr (W >= 1) {
+    constexpr int off = 32 * W / N;
+    const bool up = lane & off;
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      const V send = up ? v[q] : v[q + W];
+      const V keep = up ? v[q + W] : v[q];
+      v[q] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+    reduce_level<W / 2, N>(v, lane);
+  }
+}
+
+// Sums v (float or double) over the warp's 32 lanes, scattered: lane l
+// returns the total of v[(l >> (5 - log2 N)) & (N - 1)] (N a power of
+// two, at most 16), with N - 1 + 5 - log2 N shuffles instead of 5 N.
+template <int N, typename V>
+__device__ __forceinline__ V warp_reduce_scatter(V (&v)[N]) {
+  static_assert(N >= 1 && N <= 16 && (N & (N - 1)) == 0,
+                "N a power of two, at most 16");
+  reduce_level<N / 2, N>(v, threadIdx.x % 32);
+#pragma unroll
+  for (int off = 16 / N; off >= 1; off /= 2)
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
+  return v[0];
+}
+
 // ---- What both wkv scans share (wkv_scan.cu and its backward) ----
 namespace wkv {
 
@@ -270,40 +304,6 @@ __device__ __forceinline__ void local_cumsum(const float (&w)[SB],
     run += (double)w[s];
     L[s] = run;
   }
-}
-
-// One level of warp_reduce_scatter: lanes whose bit `32 W / N` is set
-// keep v[W..2W) and send v[0..W), the others the reverse, then the next
-// level on the W they kept. W is a template constant, so that every index
-// of v is one: with a loop bound that changes by level, nvcc leaves the
-// loop rolled and indexes v through chains of predicated moves.
-template <int W, int N>
-__device__ __forceinline__ void reduce_level(float (&v)[N], int lane) {
-  if constexpr (W >= 1) {
-    constexpr int off = 32 * W / N;
-    const bool up = lane & off;
-#pragma unroll
-    for (int q = 0; q < W; ++q) {
-      const float send = up ? v[q] : v[q + W];
-      const float keep = up ? v[q + W] : v[q];
-      v[q] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-    }
-    reduce_level<W / 2, N>(v, lane);
-  }
-}
-
-// Sums v over the warp's 32 lanes, scattered: lane l returns the total of
-// v[(l >> (5 - log2 N)) & (N - 1)] (N a power of two, at most 16), with
-// N - 1 + 5 - log2 N shuffles instead of 5 N.
-template <int N>
-__device__ __forceinline__ float warp_reduce_scatter(float (&v)[N]) {
-  static_assert(N >= 1 && N <= 16 && (N & (N - 1)) == 0,
-                "N a power of two, at most 16");
-  reduce_level<N / 2, N>(v, threadIdx.x % 32);
-#pragma unroll
-  for (int off = 16 / N; off >= 1; off /= 2)
-    v[0] += __shfl_xor_sync(0xffffffffu, v[0], off);
-  return v[0];
 }
 
 }  // namespace wkv

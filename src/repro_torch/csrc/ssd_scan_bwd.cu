@@ -19,42 +19,38 @@
 // dtype, ddt (Bb, S, nh), dA_log and dD (nh,) fp32. S is a multiple of
 // the chunk Q <= 128 (ops.py pads), hd, ds <= 64. Scratch, the wrapper's,
 // all fp32: dstate (Bb, nh, S / Q, hd, ds), decay (Bb, nh, S / Q), the
-// per-head parts of dB and dC (Bb, nh, S, ds) each, three per-step sums
-// (3, Bb, nh, S) and the per-chunk parts of dA_log and dD (Bb, S / Q,
-// nh) each; the kernels allocate nothing.
+// head groups' parts of dB and dC (Bb, ceil(nh / G), S, ds) each and the
+// per-chunk parts of dA_log and dD (Bb, S / Q, nh) each; the kernels
+// allocate nothing.
 //
 // The chunked form. Per chunk of Q steps, cum_i = sum_{t <= i} a_t over
 // the chunk, dH_c the gradient of the state the chunk leaves (d h_T for
 // the last) and G_i the gradient of h_i:
 //   G_i = sum_{k >= i} e^{cum_k - cum_i} dy_k C_k^T + e^{cum_Q - cum_i} dH_c
 //   dH_{c-1} = e^{cum_Q} dH_c + ds_c,  ds_c = sum_k e^{cum_k} dy_k C_k^T
-// (cum_Q the chunk's last cum). Each of dx, dB and dC is then one shape,
-//   out_r = sum_{pairs m} (U_r . W_m) f(r, m) Z_m + (U_r . W_r) f_rr Z_r
-//           + g(r) U_r H,
-// the pairs m > r for dx and dB and m < r for dC:
-//   dx_i / dt_i - D dy_i / dt_i: U, W, Z, H = B, C, dy, dH_c^T,
-//        f = e^{cum_m - cum_i}, f_rr = 1, g = e^{cum_Q - cum_i} (G_i B_i);
-//   dB_i (a head's part): U, W, Z, H = x, dy, C, dH_c,
-//        f = e^{cum_m - cum_i} dt_i, f_rr = dt_i, g = dt_i e^{cum_Q - cum_i};
-//   dC_k (a head's part): U, W, Z, H = dy, x, B, h_{c-1},
-//        f = e^{cum_k - cum_m} dt_m, f_rr = dt_k, g = e^{cum_k}.
-// ddt_t = x_t . G_t B_t + A da_t, and da_t = e^{a_t} <G_t, h_{t-1}>
-// holds, in chunked form, the terms whose exponent holds a_t:
-//   da_t = sum_{j < t <= i} T_ij + sum_{i >= t} C_i . dC_h,i
+// (cum_Q the chunk's last cum). With the pair matrices, for m >= r,
+//   M_rm = x_r . dy_m,  P_rm = e^{cum_m - cum_r} dt_r M_rm,
+//   R_rm = e^{cum_m - cum_r} (B_r . C_m),
+// the three gradients of the chunk's inputs are products of P and R:
+//   dx_r = dt_r dx'_r + D dy_r,  dx'_r = sum_{m >= r} R_rm dy_m
+//          + e^{cum_Q - cum_r} dH_c B_r  (= G_r B_r);
+//   dB_r = sum_{m >= r} P_rm C_m + dt_r e^{cum_Q - cum_r} x_r dH_c;
+//   dC_k = sum_{m <= k} P_mk B_m + e^{cum_k} dy_k h_{c-1}
+// (dB and dC summed over the heads). ddt_t = x_t . dx'_t + A da_t, and
+// da_t = e^{a_t} <G_t, h_{t-1}> holds, in chunked form, the terms whose
+// exponent holds a_t:
+//   da_t = sum_{r < t <= m} P_rm (B_r . C_m) + sum_{i >= t} C_i . dC_h,i
 //          + sum_{j < t} dt_j x_j . dx_h,j + e^{cum_Q} <dH_c, h_{c-1}>,
-//   T_ij = (dy_i . x_j) (C_i . B_j) e^{cum_i - cum_j} dt_j,
-// dC_h and dx_h the g(r) U_r H parts. The pair sums are taken over the
-// pairs themselves, a row's prefix over j and then a column's sum over i:
-// a suffix sum of row sums minus column sums would give the same da_t as
-// a difference of terms that add and take away each pair, whose rounding
-// dA_log = A sum dt da (summed over every step) multiplies by about Q / 2
-// (`_ssd_bwd_emulated` in tests/test_torch_scans.py holds this form
-// within 1e-5 of float64 at a log decay of -18 a step; the suffix-sum form
-// did not hold it). The pairs r = m and the chunk state's last step,
-// whose exponents are 0, count in no sum of da.
+// dC_h and dx_h the terms of dC and dx' that hold dH_c or h_{c-1}. The
+// pair sum is taken over the pairs themselves, never as a difference of
+// sums that add and take away a pair, whose rounding dA_log = A sum dt da
+// multiplies by about Q / 2 (`_ssd_bwd_emulated` in
+// tests/test_torch_scans.py holds this form within 1e-5 of float64 at a
+// log decay of -18 a step). The pairs r = m and the chunk state's last
+// step, whose exponents are 0, count in no sum of da.
 //
-// Every exponent is <= 0: e^{cum_i - cum_j} with j <= i, e^{cum_Q -
-// cum_j} and e^{cum_j}; cum is summed in double and a difference of two
+// Every exponent is <= 0: e^{cum_m - cum_r} with r <= m, e^{cum_Q -
+// cum_r} and e^{cum_k}; cum is summed in double and a difference of two
 // cums is taken from the float pair hi + lo, as the forward takes it.
 //
 // What bounds it. At a zamba2-7b training batch, (4, 2048, 112, 64, 64)
@@ -66,45 +62,65 @@
 // (chip_smoke.py's ssd_bwd_cost computes this bound). The forward's chunk
 // states are this design's choice, so they count below, not here.
 //
-// What this design moves beyond that, and why. A simple first design,
-// seven kernels a call, all named ssd_scan_bwd_*, chunk-parallel (a block
-// of 256 threads per (batch, head, chunk), 112 x 16 x 2 = 3584 at a
-// microbatch):
-//  1. ssd_scan_bwd_state: ds_c on the tensor cores (the forward's chunk
-//     state kernel with dy, C and e^{cum_k}) and the chunk's decay.
+// The design: four kernels a call, all named ssd_scan_bwd_*.
+//  1. ssd_scan_bwd_state, a block per (batch, head, chunk): ds_c on the
+//     tensor cores (the forward's chunk state kernel with dy, C and
+//     e^{cum_k}) and the chunk's decay.
 //  2. ssd_scan_bwd_pass, per (batch, head): dH_c from d h_T (or zeros)
 //     down the chunks, overwriting each ds_c, the next 8 chunks' loads in
 //     flight while 8 are applied.
-//  3. ssd_scan_bwd_chunk<MODE>, three launches (dx, dB, dC) of one
-//     template: U, W and Z staged as bf16 term tiles and H as 3; each
-//     warp takes the rows of two 16-row blocks (one from each end of the
-//     causal triangle, so every warp does the same number of pairs), and
-//     for each 16 x 16 pair block forms U W^T in registers, scales it by
-//     its factors, splits it into 3 bf16 terms in place (the accumulator
-//     of one mma.sync is the A fragment of the next) and multiplies Z;
-//     then g(r) U H. dx is written in its dtype; dB's and dC's per-head
-//     parts and the per-step sums x . dx', x . dx_h and C . dC_h in fp32.
-//     Two blocks an SM in bf16 (a block an SM in fp32).
-//  4. ssd_scan_bwd_da: T of the chunk's causal half (dy x^T and C B^T in
-//     registers, one after the other on the same smem), its pair sums,
-//     e^{cum_Q} <dH_c, h_{c-1}>, the prefix and suffix sums in double, ddt,
-//     and the chunk's parts of dA_log and dD (its rows x . dy in double).
-//  5. ssd_scan_bwd_sum: dB and dC summed over the heads in a fixed order
-//     in double, dA_log and dD over (batch, chunk).
+//  3. ssd_scan_bwd_chunk, one fused block of 8 warps per (batch, chunk)
+//     and a group of G <= 8 heads (the wrapper picks G, the last group
+//     may be smaller; one block an SM): B and C are staged once, and dB
+//     and dC summed over the group's heads in fp32 registers. For each
+//     head, with the next head's x, dy and dt in flight through cp.async
+//     (two stages in bf16) and its dH_c and h_{c-1} loading while this
+//     head's da is finished:
+//       a. warp 0: cum; the others: <dH_c, h_{c-1}> and sum x . dy (dD's
+//          part) in double;
+//       b. each of the 36 pair tiles (16 x 16, r <= m) once, 4 or 5 a
+//          warp: M = x dy^T and C B^T on the tensor cores, the decays f
+//          once, P = f dt_r M and (bf16) R = f C B^T kept in shared
+//          memory, and the pair terms of da, P . (C B^T), summed on the
+//          tile in double (the diagonal tile into 16 bins by a scattered
+//          warp reduction, the others by rows, by columns and whole).
+//          C B^T is formed again for each head (8 mma a tile): the space
+//          a group-wide C B^T would take holds R, so that no tile of d
+//          takes an exp (measured on the H100: the chunk kernel 0.93 ->
+//          0.83 ms at a microbatch);
+//       c. da's pair sum for every step from those tile sums, with warp
+//          scans over each 16 steps (no pair is added and taken away);
+//       d. the products by 16 x 32 units, a warp's two units the 16-row
+//          blocks a and 7 - a of one half of the columns (9 pair tiles a
+//          warp for dx and dB, and 9 for dC, whose units are P's columns):
+//          R times dy (dx), P times C (dB) and P^T (transposed in
+//          registers by movmatrix) times B (dC), then B dH_c^T, x dH_c
+//          and dy h_{c-1} (the two units share each dH_c and h_{c-1}
+//          fragment, split into 3 terms as it is read); dx is written,
+//          the row sums x . dx' and C . dC_h kept for e;
+//       e. the prefix and suffix sums of da in double (warp scans over 4
+//          warps, which meet at two 128-thread barriers), ddt, and the
+//          chunk's parts of dA_log and dD;
+//     then the group's parts of dB and dC.
+//  4. ssd_scan_bwd_sum: dB and dC summed over the head groups in a fixed
+//     order in double, dA_log and dD over (batch, chunk).
 // No atomics: every sum runs in a fixed order, so two calls give the same
-// bits. Its own traffic beyond the function's bytes, at a microbatch: the
-// forward's chunk states h_{c-1} (59 MB) are read by 3 (dC) and 4; the
-// chunk kernels read x and dy (59 MB each) five times between them and 4
-// once more; dstate (59 MB) is
-// written by 1, read and written by 2 and read by 3 (dx, dB) and 4; the
-// per-head parts of dB and dC (235 MB) are written by 3 and read by 5:
-// about 1.4 GB, a floor near 0.4 ms.
+// bits. fp32 inputs run the same kernels: with 3-term operands, x, dy, B
+// and C are staged as fp32 (one stage, loaded after the previous head)
+// and split into 3 bf16 terms as each fragment is read, and d forms each
+// R tile where it is used (there is no room for R).
+// Its own traffic at a microbatch, (2, 2048, 112, 64, 64) bf16, G = 7:
+// 1 reads dy and C and writes dstate (120 MB); 2 reads and writes dstate
+// (117 MB); 3 reads x, dy, dstate and h_{c-1} and writes dx (59 MB each)
+// and the groups' parts of dB and dC (34 MB); 4 reads those parts (35
+// MB): about 0.60 GB, a floor near 0.18 ms (chip_smoke.py's
+// ssd_bwd_design_bytes counts it by kernel).
 // Products are mma.sync m16n8k16 (bf16 in, fp32 accumulate). x, dy, B and
 // C are exact bf16 operands (fp32 ones split into 3 bf16 terms); every
-// fp32 factor (the scaled pair blocks, dH_c, h_{c-1}, e^{cum_k} dy) is
-// split into 3 bf16 terms, and the products of terms i, j with i + j <= 2
-// are kept, each k step's into a zeroed accumulator that is then added to
-// the fp32 total (common.cuh).
+// fp32 factor (P, R, dH_c, h_{c-1}, e^{cum_k} dy) is split into 3 bf16
+// terms, and the products of terms i, j with i + j <= 2 are kept, each k
+// step's into a zeroed accumulator that is then added to the fp32 total
+// (common.cuh).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -114,9 +130,12 @@ namespace {
 constexpr int NT = 256;                  // threads a block: 8 warps
 constexpr int QM = 128, HM = 64, DM = 64;  // chunk, hd and ds maxima
 constexpr int LD = TILE_LD;              // bf16 row of 64 + 8
-constexpr int TLD = QM + 1;              // fp32 rows of T, walked by row
-constexpr int DX = 0, DB = 1, DC = 2;    // the chunk kernel's modes
-static_assert(NT >= QM, "the da kernel takes a chunk's row a thread");
+constexpr int NRB = QM / 16;             // 16-row blocks of a chunk
+constexpr int NTILE = NRB * (NRB + 1) / 2, NOFF = NTILE - NRB;  // 36, 28
+constexpr int GMAX = 8;                  // heads a chunk block at most
+constexpr int HLD = 68;                  // fp32 row of dH_c and h_{c-1}
+static_assert(NT / 32 == NRB, "a warp a 16-row block");
+static_assert(NT >= QM, "the chunk kernel takes a step a thread");
 
 struct Params {
   const void* x;
@@ -136,12 +155,11 @@ struct Params {
   float* dD;
   float* dstate;         // (Bb, nh, nc, hd, ds): ds_c, then dH_c
   float* decay;          // (Bb, nh, nc): e^{cum_Q}
-  float* dBpart;         // (Bb, nh, S, ds)
+  float* dBpart;         // (Bb, ng, S, ds)
   float* dCpart;
-  float* rows;           // (3, Bb, nh, S): x . dx', x . dx_h, C . dC_h
   float* dApart;         // (Bb, nc, nh): sum dt da
   float* dDpart;         // (Bb, nc, nh): sum x . dy
-  int Bb, S, nh, hd, ds, Q, nc;
+  int Bb, S, nh, hd, ds, Q, nc, G, ng;
   long long bc_bstride, bc_tstride;   // B and C strides, elements
 };
 
@@ -166,43 +184,6 @@ __device__ void chunk_cumsum(double* cum, const float* dts, float A) {
   for (int e = 0; e < 4; ++e) cum[tid * 4 + e] = tot - run + v[e];
 }
 
-// v[i] replaced by its inclusive prefix sum over the QM steps (suffix sum
-// with `rev`), in double, by warp 0.
-__device__ void warp_scan(double* v, bool rev) {
-  const int l = threadIdx.x;
-  if (l >= 32) return;
-  double x[4], run = 0.0;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int i = rev ? QM - 1 - (4 * l + e) : 4 * l + e;
-    run += v[i];
-    x[e] = run;
-  }
-  double tot = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const double n = __shfl_up_sync(0xffffffffu, tot, off);
-    if (l >= off) tot += n;
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e)
-    v[rev ? QM - 1 - (4 * l + e) : 4 * l + e] = tot - run + x[e];
-}
-
-// The block's sum of v (NT threads) in a fixed order, in double; every
-// thread returns it. `red` holds NT doubles.
-__device__ double block_sum(double v, double* red) {
-  red[threadIdx.x] = v;
-  __syncthreads();
-  for (int s = NT / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red[threadIdx.x] += red[threadIdx.x + s];
-    __syncthreads();
-  }
-  const double out = red[0];
-  __syncthreads();
-  return out;
-}
-
 __device__ void load_dt(float* dts, const Params& p, int b, int h, int t0) {
   for (int i = threadIdx.x; i < QM; i += NT)
     dts[i] = i < p.Q ? p.dt[((size_t)b * p.S + t0 + i) * p.nh + h] : 0.0f;
@@ -213,45 +194,6 @@ __device__ void load_dt(float* dts, const Params& p, int b, int h, int t0) {
 __device__ __forceinline__ float decay(const float* hi, const float* lo,
                                        int i, int j) {
   return __expf((hi[i] - hi[j]) + (lo[i] - lo[j]));
-}
-
-// Element (i, k) of a staged K-term tile, as a float.
-template <int K>
-__device__ __forceinline__ float term_at(const __nv_bfloat16* s, int i,
-                                         int k) {
-  float v = 0.0f;
-#pragma unroll
-  for (int t = K - 1; t >= 0; --t)
-    v += __bfloat162float(s[t * QM * LD + i * LD + k]);
-  return v;
-}
-
-// acc (16 x 16, columns 8 n..) = rows 16 rb of Us times rows 16 mb of Ws
-// transposed, over `ksteps` k steps of 16, both staged in K terms: the
-// products of terms i + j <= 2, each k step's summed apart first.
-template <int K>
-__device__ __forceinline__ void pair_tile(float (&acc)[2][4],
-                                          const __nv_bfloat16* Us,
-                                          const __nv_bfloat16* Ws, int rb,
-                                          int mb, int ksteps) {
-  const int lane = threadIdx.x % 32;
-  for (int ks = 0; ks < ksteps; ++ks) {
-    float st[2][4] = {};
-    uint32_t a[K][4], bt[K][4];
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      ldsm_x4(a[k], smem_u32(Us + k * QM * LD + a_lane(rb * 16, ks * 16, lane)));
-      ldsm_x4(bt[k], smem_u32(Ws + k * QM * LD + bt_lane(mb * 16, ks * 16, lane)));
-    }
-#pragma unroll
-    for (int i = K - 1; i >= 0; --i)
-#pragma unroll
-      for (int j = K - 1 - i; j >= 0; --j) {
-        mma_bf16(st[0], a[i], bt[j][0], bt[j][1]);
-        mma_bf16(st[1], a[i], bt[j][2], bt[j][3]);
-      }
-    add_to(acc, st);
-  }
 }
 
 // 1. ds_c = sum_k e^{cum_k} dy_k C_k^T of one (batch, head, chunk), and
@@ -378,361 +320,781 @@ __global__ void __launch_bounds__(NT) ssd_scan_bwd_pass(Params p) {
   }
 }
 
-// 3. One of dx, dB's and dC's per-head parts for one (batch, head,
-// chunk), with its per-step sums (the header's out_r). Warp w owns two
-// units of 16 rows x 32 columns of out, rows 16 w with columns 0..31 and
-// rows 16 (7 - w) with columns 32..63.
-template <typename T, int MODE>
-__global__ void __launch_bounds__(NT, 2) ssd_scan_bwd_chunk(Params p) {
-  constexpr int K = terms<T>();
-  constexpr bool LATER = MODE != DC;     // pairs m > r, else m < r
-  extern __shared__ __align__(16) unsigned char smem[];
-  double* cum = reinterpret_cast<double*>(smem);
-  float* dts = reinterpret_cast<float*>(cum + QM);
-  float* chi = dts + QM;     // cum as the float pair chi + clo
-  float* clo = chi + QM;
-  float* gf = clo + QM;      // g(r)
-  float* pd = gf + QM;       // U_r . W_r
-  float* part = pd + QM;     // (2 sums, 2 column halves, QM)
-  __nv_bfloat16* Us = reinterpret_cast<__nv_bfloat16*>(part + 4 * QM);
-  __nv_bfloat16* Ws = Us + K * QM * LD;
-  __nv_bfloat16* Zs = Ws + K * QM * LD;
-  __nv_bfloat16* Hs = Zs + K * QM * LD;   // 3 terms, HM x LD: rows d, cols s
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t0 = c * p.Q;
-  const int tid = threadIdx.x;
-  const float A = -expf(p.A_log[h]);
-  const size_t row = (size_t)p.nh * p.hd;               // token stride of x
-  const size_t xh = ((size_t)b * p.S + t0) * row + (size_t)h * p.hd;
-  const size_t bc0 = (size_t)b * p.bc_bstride + (size_t)t0 * p.bc_tstride;
-  const size_t bhc = ((size_t)b * p.nh + h) * p.nc + c;
-  const T* X = static_cast<const T*>(p.x);
-  const T* DY = static_cast<const T*>(p.dy);
-  const T* Bm = static_cast<const T*>(p.B);
-  const T* Cm = static_cast<const T*>(p.C);
-  const int KU = MODE == DX ? p.ds : p.hd;   // width of U and W
-  const int NZ = MODE == DX ? p.hd : p.ds;   // width of Z and of out
-  {   // every load of the block in flight before any is used
-    const size_t urs = MODE == DX ? (size_t)p.bc_tstride : row;
-    const size_t zrs = MODE == DX ? row : (size_t)p.bc_tstride;
-    Tile<QM, T> ut(MODE == DX ? Bm + bc0 : MODE == DB ? X + xh : DY + xh,
-                   urs, p.Q, KU);
-    Tile<QM, T> wt(MODE == DX ? Cm + bc0 : MODE == DB ? DY + xh : X + xh,
-                   urs, p.Q, KU);
-    Tile<QM, T> zt(MODE == DX ? DY + xh : MODE == DB ? Cm + bc0 : Bm + bc0,
-                   zrs, p.Q, NZ);
-    Tile<HM, float> ht((MODE == DC ? p.states : p.dstate)
-                       + bhc * p.hd * p.ds, p.ds, p.hd, p.ds);
-    load_dt(dts, p, b, h, t0);
-    for (int i = tid; i < 4 * QM; i += NT) part[i] = 0.0f;
-    ut.template store_terms<K>(Us);
-    wt.template store_terms<K>(Ws);
-    zt.template store_terms<K>(Zs);
-    ht.template store_terms<3>(Hs);
-  }
-  __syncthreads();
-  chunk_cumsum(cum, dts, A);
-  __syncthreads();
-  const double cQ = cum[QM - 1];
-  for (int i = tid; i < QM; i += NT) {
-    chi[i] = (float)cum[i];
-    clo[i] = (float)(cum[i] - (double)chi[i]);
-    const float eq = expf((float)(cQ - cum[i]));
-    gf[i] = MODE == DX ? eq : MODE == DB ? dts[i] * eq : expf((float)cum[i]);
-    float s = 0.0f;
-    for (int k = 0; k < KU; ++k) s += term_at<K>(Us, i, k) * term_at<K>(Ws, i, k);
-    pd[i] = s;
-  }
-  __syncthreads();
+// ---- 3. The fused chunk kernel ----
 
-  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
-  const int nrb = (p.Q + 15) / 16, ksteps = (KU + 15) / 16;
-  const float Dh = p.D[h];
-#pragma unroll 1
-  for (int u = 0; u < 2; ++u) {
-    const int rb = u == 0 ? warp : 7 - warp, n0 = u * 32;
-    if (rb >= nrb || n0 >= NZ) continue;
-    float yi[4][4] = {}, ye[4][4] = {};
-    const int m_lo = LATER ? rb : 0, m_hi = LATER ? nrb - 1 : rb;
-    for (int mb = m_lo; mb <= m_hi; ++mb) {
-      float pp[2][4] = {};
-      pair_tile<K>(pp, Us, Ws, rb, mb, ksteps);
-      // the pair block scaled by f(r, m), split into 3 terms in place:
-      // fragment q holds rows g (+8 for odd q), columns 2t (+8 for q >= 2)
-      uint32_t a[4][3];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int i = rb * 16 + g + (q & 1) * 8;
-        float v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int m = mb * 16 + (q >> 1) * 8 + 2 * t + e;
-          float f;
-          if (MODE == DX) f = m > i ? decay(chi, clo, m, i) : 0.0f;
-          else if (MODE == DB) f = m > i ? decay(chi, clo, m, i) * dts[i] : 0.0f;
-          else f = m < i ? decay(chi, clo, i, m) * dts[m] : 0.0f;
-          v[e] = f * pp[q >> 1][(q & 1) * 2 + e];
-        }
-        split_pack<3>(v[0], v[1], a[q]);
-      }
-      float st[4][4] = {};
-#pragma unroll
-      for (int j = K - 1; j >= 0; --j) {
-        uint32_t bb[2][4];
-#pragma unroll
-        for (int n2 = 0; n2 < 2; ++n2)
-          ldsm_x4_trans(bb[n2], smem_u32(Zs + j * QM * LD
-                                         + b_lane(mb * 16, n0 + 16 * n2,
-                                                  lane)));
-        mma_terms(st, a, bb, 2 - j);
-      }
-      add_to(yi, st);
-    }
-    // U H: A = U (K terms), B = H (3 terms): H^T stored for dx (rows n =
-    // d, cols k = s), H for dB and dC (rows k = d, cols n = s)
-    for (int ks = 0; ks < ksteps; ++ks) {
-      float st[4][4] = {};
-      uint32_t a[K][4];
-#pragma unroll
-      for (int i = 0; i < K; ++i)
-        ldsm_x4(a[i], smem_u32(Us + i * QM * LD + a_lane(rb * 16, ks * 16, lane)));
-#pragma unroll
-      for (int j = 2; j >= 0; --j) {
-        uint32_t bt[2][4];
-#pragma unroll
-        for (int n2 = 0; n2 < 2; ++n2) {
-          if (MODE == DX)
-            ldsm_x4(bt[n2], smem_u32(Hs + j * HM * LD
-                                     + bt_lane(n0 + 16 * n2, ks * 16, lane)));
-          else
-            ldsm_x4_trans(bt[n2], smem_u32(Hs + j * HM * LD
-                                           + b_lane(ks * 16, n0 + 16 * n2,
-                                                    lane)));
-        }
-#pragma unroll
-        for (int i = (K - 1 < 2 - j ? K - 1 : 2 - j); i >= 0; --i)
-#pragma unroll
-          for (int n = 0; n < 4; ++n)
-            mma_bf16(st[n], a[i], bt[n / 2][(n % 2) * 2],
-                     bt[n / 2][(n % 2) * 2 + 1]);
-      }
-      add_to(ye, st);
-    }
-    // out, and the per-step sums over this unit's 32 columns
-    float r1[2] = {0.0f, 0.0f}, r2[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = rb * 16 + g + (e >> 1) * 8;
-        const int col = n0 + n * 8 + 2 * t + (e & 1);
-        if (i >= p.Q || col >= NZ) continue;
-        const float z = term_at<K>(Zs, i, col);
-        const float strict = yi[n][e], inter = gf[i] * ye[n][e];
-        const float v = (strict + inter)
-            + pd[i] * (MODE == DX ? 1.0f : dts[i]) * z;
-        if (MODE == DX) {
-          const size_t at = xh + (size_t)i * row + col;
-          store(static_cast<T*>(p.dx), at, dts[i] * v + Dh * z);
-          const float xv = load(X, at);
-          r1[e >> 1] += xv * strict;
-          r2[e >> 1] += xv * inter;
-        } else {
-          const size_t at = (((size_t)b * p.nh + h) * p.S + t0 + i) * p.ds + col;
-          (MODE == DB ? p.dBpart : p.dCpart)[at] = v;
-          if (MODE == DC)
-            r2[e >> 1] += load(Cm, bc0 + (size_t)i * p.bc_tstride + col) * inter;
-        }
-      }
-#pragma unroll
-    for (int k = 0; k < 2; ++k)
-#pragma unroll
-      for (int off = 1; off <= 2; off <<= 1) {
-        r1[k] += __shfl_xor_sync(0xffffffffu, r1[k], off);
-        r2[k] += __shfl_xor_sync(0xffffffffu, r2[k], off);
-      }
-    if (t == 0)
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int i = rb * 16 + g + k * 8;
-        part[(0 * 2 + u) * QM + i] = r1[k];
-        part[(1 * 2 + u) * QM + i] = r2[k];
-      }
-  }
-  if (MODE == DB) return;
-  __syncthreads();
-  const size_t plane = (size_t)p.Bb * p.nh * p.S;
-  const size_t at = ((size_t)b * p.nh + h) * p.S + t0;
-  for (int i = tid; i < p.Q; i += NT) {
-    const float s1 = part[i] + part[QM + i];
-    const float s2 = part[2 * QM + i] + part[3 * QM + i];
-    if (MODE == DX) {
-      p.rows[at + i] = s1;
-      p.rows[plane + at + i] = s2;
+// 16-byte cp.async (src_bytes 0: 16 zero bytes), 4-byte cp.async, and
+// their groups.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// Rows [0, n) x cols [0, m) of `src` (element (i, j) at i * rs + j) into
+// the ROWS x 64 tile dst (row stride LDS elements), zeros elsewhere: a
+// 16-byte cp.async for each whole, aligned run of 16 bytes, element loads
+// for a ragged or unaligned one. Nothing waits here.
+template <typename T, int LDS, int ROWS>
+__device__ __forceinline__ void stage(T* dst, const T* src, size_t rs,
+                                      int n, int m) {
+  constexpr int V = 16 / sizeof(T), RUNS = 64 / V;
+  for (int idx = threadIdx.x; idx < ROWS * RUNS; idx += NT) {
+    const int i = idx / RUNS, j = (idx % RUNS) * V;
+    T* d = dst + i * LDS + j;
+    const T* s = src + (size_t)i * rs + j;
+    if (i >= n || j >= m) {
+      cp_async16(d, src, 0);
+    } else if (j + V <= m && (reinterpret_cast<uintptr_t>(s) & 15) == 0) {
+      cp_async16(d, s, 16);
     } else {
-      p.rows[2 * plane + at + i] = s2;
+#pragma unroll
+      for (int e = 0; e < V; ++e) store(d, e, j + e < m ? load(s, e) : 0.0f);
     }
   }
 }
 
-// 4. da of one (batch, head, chunk) and what follows from it: T's pair
-// sums (dy x^T and C B^T of the causal half in registers, one after the
-// other on the same shared memory), e^{cum_Q} <dH_c, h_{c-1}>, the prefix
-// and suffix sums, ddt, and the chunk's parts of dA_log and dD.
-template <typename T>
-__global__ void __launch_bounds__(NT, 2) ssd_scan_bwd_da(Params p) {
-  constexpr int K = terms<T>();
-  constexpr int MAXT = 5;                // tiles a warp: 36 in 8 warps
-  extern __shared__ __align__(16) unsigned char smem[];
-  double* cum = reinterpret_cast<double*>(smem);
-  double* su = cum + QM;     // C . dC_h, then its suffix sums
-  double* pr = su + QM;      // dt x . dx_h, then its prefix sums
-  double* red = pr + QM;     // NT
-  float* dts = reinterpret_cast<float*>(red + NT);
-  float* chi = dts + QM;
-  float* clo = chi + QM;
-  float* xdy = clo + QM;     // x_i . dy_i
-  float* bcd = xdy + QM;     // B_i . C_i
-  float* Ts = bcd + QM;      // QM x TLD: T, then its rows' prefix sums
-  __nv_bfloat16* P0 = reinterpret_cast<__nv_bfloat16*>(Ts + QM * TLD);
-  __nv_bfloat16* P1 = P0 + K * QM * LD;
-  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z, t0 = c * p.Q;
-  const int tid = threadIdx.x;
-  const float A = -expf(p.A_log[h]);
-  const size_t row = (size_t)p.nh * p.hd;
-  const size_t xh = ((size_t)b * p.S + t0) * row + (size_t)h * p.hd;
-  const size_t bc0 = (size_t)b * p.bc_bstride + (size_t)t0 * p.bc_tstride;
-  const size_t bhc = ((size_t)b * p.nh + h) * p.nc + c;
-  {
-    Tile<QM, T> yt(static_cast<const T*>(p.dy) + xh, row, p.Q, p.hd);
-    Tile<QM, T> xt(static_cast<const T*>(p.x) + xh, row, p.Q, p.hd);
-    load_dt(dts, p, b, h, t0);
-    yt.template store_terms<K>(P0);
-    xt.template store_terms<K>(P1);
-  }
-  __syncthreads();
-  chunk_cumsum(cum, dts, A);
-  __syncthreads();
-  // x_i . dy_i in double: ddt's pair i = i and the row sums of dD, which
-  // sums terms of both signs, so an fp32 sum over hd would show in it
-  // (fp32 dD read 7.2e-7 of float64 with one). The staged terms sum to x
-  // and dy exactly (3 bf16 terms hold an fp32's 24 bits), so each product
-  // is exact in double. NT >= QM: a thread a row, which it keeps for dD.
-  double xd_row = 0.0;
-  for (int i = tid; i < QM; i += NT) {
-    chi[i] = (float)cum[i];
-    clo[i] = (float)(cum[i] - (double)chi[i]);
-    for (int k = 0; k < p.hd; ++k)
-      xd_row += (double)term_at<K>(P0, i, k) * term_at<K>(P1, i, k);
-    xdy[i] = (float)xd_row;
-  }
-  const int warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
-  const int nrb = (p.Q + 15) / 16, ntile = nrb * (nrb + 1) / 2;
-  auto tile_rc = [](int tile, int& rb, int& cb) {
-    rb = 0;
-    while ((rb + 1) * (rb + 2) / 2 <= tile) ++rb;
-    cb = tile - rb * (rb + 1) / 2;
-  };
-  float xd[MAXT][2][4];
+// Fragments of staged tiles (mma_bf16's layouts), K = terms<T>() bf16
+// terms each: bf16 tiles (row stride TILE_LD) through ldmatrix, fp32 ones
+// (row stride LDS) loaded and split into 3 terms. frag_a: the A fragment
+// of rows r0.., cols c0..; frag_bt: two n8 B fragments whose n runs along
+// rows n0.. and k along cols c0.. (B^T stored); frag_b: two n8 B
+// fragments whose k runs along rows k0.. and n along cols n0.. (B stored).
+template <typename T, int LDS>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[terms<T>()][4],
+                                       const T* s, int r0, int c0) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  if constexpr (sizeof(T) == 2) {
+    static_assert(LDS == TILE_LD, "bf16 tiles have rows of TILE_LD");
+    ldsm_x4(a[0], smem_u32(s + a_lane(r0, c0, lane)));
+  } else {
 #pragma unroll
-  for (int q = 0; q < MAXT; ++q) {
-    const int tile = warp + 8 * q;
+    for (int q = 0; q < 4; ++q) {
+      const float2 v = *reinterpret_cast<const float2*>(
+          s + (r0 + g + (q & 1) * 8) * LDS + c0 + 2 * t + (q >> 1) * 8);
+      uint32_t r[3];
+      split_pack<3>(v.x, v.y, r);
 #pragma unroll
-    for (int n = 0; n < 2; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) xd[q][n][e] = 0.0f;
-    if (tile < ntile) {
-      int rb, cb;
-      tile_rc(tile, rb, cb);
-      pair_tile<K>(xd[q], P0, P1, rb, cb, (p.hd + 15) / 16);
+      for (int k = 0; k < 3; ++k) a[k][q] = r[k];
     }
   }
-  __syncthreads();
-  {
-    Tile<QM, T> ct(static_cast<const T*>(p.C) + bc0, p.bc_tstride, p.Q, p.ds);
-    Tile<QM, T> bt(static_cast<const T*>(p.B) + bc0, p.bc_tstride, p.Q, p.ds);
-    ct.template store_terms<K>(P0);
-    bt.template store_terms<K>(P1);
-  }
-  __syncthreads();
-  for (int i = tid; i < QM; i += NT) {
-    float s = 0.0f;
-    for (int k = 0; k < p.ds; ++k) s += term_at<K>(P0, i, k) * term_at<K>(P1, i, k);
-    bcd[i] = s;
-  }
+}
+template <typename T, int LDS>
+__device__ __forceinline__ void frag_bt(uint32_t (&b)[terms<T>()][4],
+                                        const T* s, int n0, int c0) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  if constexpr (sizeof(T) == 2) {
+    static_assert(LDS == TILE_LD, "bf16 tiles have rows of TILE_LD");
+    ldsm_x4(b[0], smem_u32(s + bt_lane(n0, c0, lane)));
+  } else {
 #pragma unroll
-  for (int q = 0; q < MAXT; ++q) {
-    const int tile = warp + 8 * q;
-    if (tile < ntile) {
-      int rb, cb;
-      tile_rc(tile, rb, cb);
-      float cbt[2][4] = {};
-      pair_tile<K>(cbt, P0, P1, rb, cb, (p.ds + 15) / 16);
+    for (int q = 0; q < 4; ++q) {
+      const float2 v = *reinterpret_cast<const float2*>(
+          s + (n0 + g + (q >> 1) * 8) * LDS + c0 + 2 * t + (q & 1) * 8);
+      uint32_t r[3];
+      split_pack<3>(v.x, v.y, r);
 #pragma unroll
-      for (int n = 0; n < 2; ++n)
+      for (int k = 0; k < 3; ++k) b[k][q] = r[k];
+    }
+  }
+}
+template <typename T, int LDS>
+__device__ __forceinline__ void frag_b(uint32_t (&b)[terms<T>()][4],
+                                       const T* s, int k0, int n0) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  if constexpr (sizeof(T) == 2) {
+    static_assert(LDS == TILE_LD, "bf16 tiles have rows of TILE_LD");
+    ldsm_x4_trans(b[0], smem_u32(s + b_lane(k0, n0, lane)));
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float* e = s + (k0 + 2 * t + (q & 1) * 8) * LDS + n0 + g
+          + (q >> 1) * 8;
+      uint32_t r[3];
+      split_pack<3>(e[0], e[LDS], r);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) b[k][q] = r[k];
+    }
+  }
+}
+
+// st (16 x 16) += a b over the term products i + j <= 2, smallest first.
+template <int KA, int KB>
+__device__ __forceinline__ void mma16(float (&st)[2][4],
+                                      const uint32_t (&a)[KA][4],
+                                      const uint32_t (&b)[KB][4]) {
+#pragma unroll
+  for (int i = KA - 1; i >= 0; --i)
+#pragma unroll
+    for (int j = (KB - 1 < 2 - i ? KB - 1 : 2 - i); j >= 0; --j) {
+      mma_bf16(st[0], a[i], b[j][0], b[j][1]);
+      mma_bf16(st[1], a[i], b[j][2], b[j][3]);
+    }
+}
+// st (16 x 32) += a [b0 b1], as mma16.
+template <int KA, int KB>
+__device__ __forceinline__ void mma32(float (&st)[4][4],
+                                      const uint32_t (&a)[KA][4],
+                                      const uint32_t (&b0)[KB][4],
+                                      const uint32_t (&b1)[KB][4]) {
+#pragma unroll
+  for (int i = KA - 1; i >= 0; --i)
+#pragma unroll
+    for (int j = (KB - 1 < 2 - i ? KB - 1 : 2 - i); j >= 0; --j) {
+      mma_bf16(st[0], a[i], b0[j][0], b0[j][1]);
+      mma_bf16(st[1], a[i], b0[j][2], b0[j][3]);
+      mma_bf16(st[2], a[i], b1[j][0], b1[j][1]);
+      mma_bf16(st[3], a[i], b1[j][2], b1[j][3]);
+    }
+}
+
+// acc (16 x 16) = rows 16 rb of U times rows 16 mb of W transposed, over
+// `ksteps` k steps of 16, each step's products summed apart first.
+template <typename T, int LDS>
+__device__ __forceinline__ void pair(float (&acc)[2][4], const T* U,
+                                     const T* W, int rb, int mb,
+                                     int ksteps) {
+  constexpr int K = terms<T>();
+  for (int ks = 0; ks < ksteps; ++ks) {
+    uint32_t a[K][4], bt[K][4];
+    frag_a<T, LDS>(a, U, rb * 16, ks * 16);
+    frag_bt<T, LDS>(bt, W, mb * 16, ks * 16);
+    float st[2][4] = {};
+    mma16<K, K>(st, a, bt);
+    add_to(acc, st);
+  }
+}
+
+// The fp32 16 x 16 tile v (accumulator layout) split into 3 bf16 terms
+// as an A fragment, term-major.
+__device__ __forceinline__ void split_a(const float (&v)[2][4],
+                                        uint32_t (&a)[3][4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t r[3];
+    split_pack<3>(v[q >> 1][(q & 1) * 2], v[q >> 1][(q & 1) * 2 + 1], r);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) a[k][q] = r[k];
+  }
+}
+
+// The 8 x 8 b16 matrix held as mma_bf16's A sub-fragment, transposed
+// across the warp.
+__device__ __forceinline__ uint32_t movT(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(d) : "r"(a));
+  return d;
+}
+
+// A 16 x 16 fp32 tile in fragment order (lane-major float4s: no bank
+// conflicts), tile k of `base`.
+__device__ __forceinline__ void put_frag(float* base, int k,
+                                         const float (&v)[2][4]) {
+  float4* q = reinterpret_cast<float4*>(base) + k * 64 + threadIdx.x % 32;
+  q[0] = make_float4(v[0][0], v[0][1], v[0][2], v[0][3]);
+  q[32] = make_float4(v[1][0], v[1][1], v[1][2], v[1][3]);
+}
+__device__ __forceinline__ void get_frag(const float* base, int k,
+                                         float (&v)[2][4]) {
+  const float4* q = reinterpret_cast<const float4*>(base) + k * 64
+      + threadIdx.x % 32;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const float4 f = q[32 * n];
+    v[n][0] = f.x, v[n][1] = f.y, v[n][2] = f.z, v[n][3] = f.w;
+  }
+}
+
+// The pair tiles (rb, mb), rb <= mb, numbered by diagonal: the 8 tiles
+// (r, r) first, then the 7 tiles (r, r + 1), and so on.
+__host__ __device__ constexpr int tile_id(int rb, int mb) {
+  return (mb - rb) * NRB - (mb - rb) * (mb - rb - 1) / 2 + rb;
+}
+__device__ __forceinline__ void tile_rc(int k, int& rb, int& mb) {
+  int s = 0;
+  while (k >= NRB - s) {
+    k -= NRB - s;
+    ++s;
+  }
+  rb = k;
+  mb = k + s;
+}
+
+// The fused kernel's shared memory, byte offsets. Two stages of x, dy
+// in bf16 (one in fp32: three-term operands are staged as fp32 and split
+// as they are read), one of dH_c and h_{c-1}; P and R (bf16 only; fp32
+// forms each R tile where it is used) as fragment-ordered tiles; the
+// per-step vectors; the da tile sums.
+template <typename T>
+struct Smem {
+  static constexpr int K = terms<T>(), LDS = sizeof(T) == 2 ? TILE_LD : 68,
+      STG = sizeof(T) == 2 ? 2 : 1;
+  static constexpr size_t TILE = (size_t)QM * LDS * sizeof(T),
+      HT = (size_t)HM * HLD * 4, PT = (size_t)NTILE * 256 * 4;
+  static constexpr size_t B = 0, C = B + TILE, X = C + TILE,
+      DY = X + STG * TILE, DH = DY + STG * TILE, H = DH + HT, P = H + HT,
+      R = P + PT, DT = R + (K == 1 ? PT : 0), CHI = DT + 2 * QM * 4,
+      CLO = CHI + QM * 4, EQ = CLO + QM * 4, ECUM = EQ + QM * 4,
+      PART = ECUM + QM * 4, BOX = PART + 6 * QM * 4,
+      SFULL = BOX + NRB * 16 * 8, ROWT = SFULL + NOFF * 8,
+      COLT = ROWT + NOFF * 16 * 4, DAIN = COLT + NOFF * 16 * 4,
+      RED = DAIN + QM * 8, SCAL = RED + 28 * 8,
+      TOTAL = SCAL + (1 + 2 * GMAX) * 4;
+};
+static_assert(Smem<__nv_bfloat16>::TOTAL <= 232448,
+              "ssd_scan_bwd_chunk fits an SM in bf16");
+static_assert(Smem<float>::TOTAL <= 232448,
+              "ssd_scan_bwd_chunk fits an SM in fp32");
+
+// cum over the chunk in double by warp 0 (lane l owns steps 4 l..4 l + 3)
+// and what the chunk kernel takes from it: cum as the float pair chi +
+// clo, e^{cum_Q - cum_i}, e^{cum_i} and e^{cum_Q}.
+__device__ __forceinline__ void head_cum(const float* dts, float A,
+                                         float* chi, float* clo, float* eQ,
+                                         float* ecum, float* decQ) {
+  const int l = threadIdx.x;
+  double v[4], run = 0.0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    run += (double)dts[4 * l + e] * A;
+    v[e] = run;
+  }
+  double tot = run;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const double n = __shfl_up_sync(0xffffffffu, tot, off);
+    if (l >= off) tot += n;
+  }
+  const double cQ = __shfl_sync(0xffffffffu, tot, 31);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int i = 4 * l + e;
+    const double cum = tot - run + v[e];
+    chi[i] = (float)cum;
+    clo[i] = (float)(cum - (double)chi[i]);
+    eQ[i] = expf((float)(cQ - cum));
+    ecum[i] = expf((float)cum);
+  }
+  if (l == 0) *decQ = expf((float)cQ);
+}
+
+// A barrier of the chunk kernel's first QM threads (4 warps), the ones
+// that take a step of the chunk each in step e.
+__device__ __forceinline__ void bar_step() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(QM) : "memory");
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// 3. The chunk work of one (batch, chunk) and heads h0.. h0 + hn - 1 (a
+// group of p.G, the last one ragged), a head at a time (the header's
+// steps a-e), then the group's dB and dC parts (f).
+template <typename T>
+__global__ void __launch_bounds__(NT, 1) ssd_scan_bwd_chunk(Params p) {
+  using L = Smem<T>;
+  constexpr int K = L::K, LDS = L::LDS, STG = L::STG;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Bs = reinterpret_cast<T*>(smem + L::B);
+  T* Cs = reinterpret_cast<T*>(smem + L::C);
+  float* dHs = reinterpret_cast<float*>(smem + L::DH);
+  float* hs = reinterpret_cast<float*>(smem + L::H);
+  float* Ps = reinterpret_cast<float*>(smem + L::P);
+  float* Rs = reinterpret_cast<float*>(smem + L::R);
+  float* chi = reinterpret_cast<float*>(smem + L::CHI);
+  float* clo = reinterpret_cast<float*>(smem + L::CLO);
+  float* eQ = reinterpret_cast<float*>(smem + L::EQ);
+  float* ecum = reinterpret_cast<float*>(smem + L::ECUM);
+  float* part = reinterpret_cast<float*>(smem + L::PART);  // (2 halves, 3, QM)
+  double* box = reinterpret_cast<double*>(smem + L::BOX);  // (NRB, 16)
+  double* Sfull = reinterpret_cast<double*>(smem + L::SFULL);
+  float* rowT = reinterpret_cast<float*>(smem + L::ROWT);  // (NOFF, 16)
+  float* colT = reinterpret_cast<float*>(smem + L::COLT);
+  double* dain = reinterpret_cast<double*>(smem + L::DAIN);
+  // E 8, dD 8, the scans' warp totals 4 + 4, dA 4
+  double* red = reinterpret_cast<double*>(smem + L::RED);
+  // e^{cum_Q}, then A and D of each head of the group
+  float* scal = reinterpret_cast<float*>(smem + L::SCAL);
+  auto xs = [&](int n) {
+    return reinterpret_cast<T*>(smem + L::X + (n % STG) * L::TILE);
+  };
+  auto dys = [&](int n) {
+    return reinterpret_cast<T*>(smem + L::DY + (n % STG) * L::TILE);
+  };
+  auto dts = [&](int n) {
+    return reinterpret_cast<float*>(smem + L::DT + (n % 2) * QM * 4);
+  };
+
+  const int c = blockIdx.x, grp = blockIdx.y, b = blockIdx.z, t0 = c * p.Q;
+  const int h0 = grp * p.G, hn = min(p.G, p.nh - h0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t row = (size_t)p.nh * p.hd;               // token stride of x
+  const size_t bc0 = (size_t)b * p.bc_bstride + (size_t)t0 * p.bc_tstride;
+  const T* X = static_cast<const T*>(p.x);
+  const T* DY = static_cast<const T*>(p.dy);
+  const int hsteps = (p.hd + 15) / 16, dsteps = (p.ds + 15) / 16;
+
+  auto load_head = [&](int n) {   // x, dy and dt of head h0 + n
+    const size_t xh = ((size_t)b * p.S + t0) * row + (size_t)(h0 + n) * p.hd;
+    stage<T, LDS, QM>(xs(n), X + xh, row, p.Q, p.hd);
+    stage<T, LDS, QM>(dys(n), DY + xh, row, p.Q, p.hd);
+    float* d = dts(n);
+    for (int i = tid; i < QM; i += NT)
+      cp_async4(d + i, i < p.Q ? p.dt + ((size_t)b * p.S + t0 + i) * p.nh
+                                         + h0 + n : p.dt, i < p.Q ? 4 : 0);
+  };
+  auto load_states = [&](int n) {   // dH_c and h_{c-1} of head h0 + n
+    const size_t at = (((size_t)b * p.nh + h0 + n) * p.nc + c) * p.hd * p.ds;
+    stage<float, HLD, HM>(dHs, p.dstate + at, p.ds, p.hd, p.ds);
+    stage<float, HLD, HM>(hs, p.states + at, p.ds, p.hd, p.ds);
+  };
+  stage<T, LDS, QM>(Bs, static_cast<const T*>(p.B) + bc0, p.bc_tstride,
+                    p.Q, p.ds);
+  stage<T, LDS, QM>(Cs, static_cast<const T*>(p.C) + bc0, p.bc_tstride,
+                    p.Q, p.ds);
+  load_head(0);
+  cp_commit();
+  load_states(0);
+  cp_commit();
+  if (tid < hn) {
+    scal[1 + tid] = -expf(p.A_log[h0 + tid]);
+    scal[1 + GMAX + tid] = p.D[h0 + tid];
+  }
+
+  // dB and dC of the group, summed over its heads: this warp's units are
+  // the 16-row blocks ub[0] = a and ub[1] = NRB - 1 - a (a = warp % 4,
+  // 9 pair tiles between them), columns n0 = 32 (warp / 4)..
+  const int half = warp / (NRB / 2), n0 = 32 * half;
+  const int ub[2] = {warp % (NRB / 2), NRB - 1 - warp % (NRB / 2)};
+  float dBacc[2][4][4] = {}, dCacc[2][4][4] = {};
+#pragma unroll 1
+  for (int n = 0; n < hn; ++n) {
+    const int h = h0 + n;
+    if (STG == 2 && n + 1 < hn) {
+      load_head(n + 1);
+      cp_commit();
+      cp_wait<1>();
+    } else {
+      cp_wait<0>();
+    }
+    __syncthreads();
+    const T* Xs = xs(n);
+    const T* Ys = dys(n);
+    const float* dt = dts(n);
+    const float A = scal[1 + n];
+
+    // a. warp 0: cum; the others: <dH_c, h_{c-1}> and sum x . dy (dD's
+    // part; a product of bf16 values is exact in fp32) over the chunk,
+    // in double
+    if (warp == 0) {
+      head_cum(dt, A, chi, clo, eQ, ecum, scal);
+      if (lane == 0) red[0] = red[8] = 0.0;
+    } else {
+      double pe = 0.0, pd = 0.0;
+      for (int k = tid - 32; k < HM * DM; k += NT - 32) {
+        const int at = (k / DM) * HLD + k % DM;
+        pe += (double)dHs[at] * hs[at];
+      }
+      for (int k = tid - 32; k < QM * HM; k += NT - 32) {
+        const int at = (k / HM) * LDS + k % HM;
+        if (K == 1) pd += (double)(load(Xs, at) * load(Ys, at));
+        else pd += (double)load(Xs, at) * load(Ys, at);
+      }
+      pe = warp_sum(pe);
+      pd = warp_sum(pd);
+      if (lane == 0) {
+        red[warp] = pe;
+        red[8 + warp] = pd;
+      }
+    }
+    __syncthreads();
+    // b. every pair tile once: M = x dy^T and C B^T, f = e^{cum_m - cum_r}
+    // (m >= r), P = f dt_r M and (bf16) R = f C B^T kept for d; T^T = P .
+    // C B^T (m > r) and its sums
+    for (int k = warp; k < NTILE; k += NT / 32) {
+      int rb, mb;
+      tile_rc(k, rb, mb);
+      float acc[2][4] = {}, cb[2][4] = {}, rv[2][4];
+      pair<T, LDS>(acc, Xs, Ys, rb, mb, hsteps);
+      pair<T, LDS>(cb, Bs, Cs, rb, mb, dsteps);
+      double tv[2][4];
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = rb * 16 + g + (e >> 1) * 8;
-          const int j = cb * 16 + n * 8 + 2 * t + (e & 1);
-          Ts[i * TLD + j] = j < i
-              ? (xd[q][n][e] * cbt[n][e]) * decay(chi, clo, i, j) * dts[j]
-              : 0.0f;
+          const int m = mb * 16 + nn * 8 + 2 * t + (e & 1);
+          const float f = m >= i ? decay(chi, clo, m, i) : 0.0f;
+          rv[nn][e] = cb[nn][e] * f;
+          acc[nn][e] *= f * dt[i];
+          tv[nn][e] = m > i ? (double)(acc[nn][e] * cb[nn][e]) : 0.0;
         }
+      put_frag(Ps, k, acc);
+      if (K == 1) put_frag(Rs, k, rv);
+      if (rb == mb) {
+        // the tile's part of da_t: T^T[r][m] over r < t <= m, 16 bins
+        double v[16] = {};
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = g + (e >> 1) * 8, m = nn * 8 + 2 * t + (e & 1);
+#pragma unroll
+            for (int s = 0; s < 16; ++s)
+              if (r < s && s <= m) v[s] += tv[nn][e];
+          }
+        const double sum = warp_reduce_scatter(v);
+        if ((lane & 1) == 0) box[rb * 16 + (lane >> 1)] = sum;
+      } else {
+        // its row sums, column sums and total
+        double r0 = (tv[0][0] + tv[0][1]) + (tv[1][0] + tv[1][1]);
+        double r1 = (tv[0][2] + tv[0][3]) + (tv[1][2] + tv[1][3]);
+        double cs[2][2];
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) cs[nn][q] = tv[nn][q] + tv[nn][2 + q];
+#pragma unroll
+        for (int off = 1; off <= 2; off <<= 1) {
+          r0 += __shfl_xor_sync(0xffffffffu, r0, off);
+          r1 += __shfl_xor_sync(0xffffffffu, r1, off);
+        }
+        double full = r0 + r1;
+#pragma unroll
+        for (int off = 4; off <= 16; off <<= 1) {
+          full += __shfl_xor_sync(0xffffffffu, full, off);
+#pragma unroll
+          for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              cs[nn][q] += __shfl_xor_sync(0xffffffffu, cs[nn][q], off);
+        }
+        const int o = k - NRB;
+        if (t == 0) {
+          rowT[o * 16 + g] = (float)r0;
+          rowT[o * 16 + g + 8] = (float)r1;
+        }
+        if (g == 0)
+#pragma unroll
+          for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              colT[o * 16 + nn * 8 + 2 * t + q] = (float)cs[nn][q];
+        if (lane == 0) Sfull[o] = full;
+      }
+    }
+    __syncthreads();
+
+    // c. da's pair sums, sum_{r < t <= m} T^T[r][m], from the tile sums:
+    // the diagonal tile's bins, the prefix over r < t of the row sums of
+    // the tiles right of it, the suffix over m >= t of the column sums of
+    // the tiles above it, and the tiles wholly on both sides of t
+    if (tid < QM) {
+      const int tb = tid >> 4, tau = tid & 15;
+      double rs = 0.0, cs = 0.0, F = 0.0;
+      for (int ib = tb + 1; ib < NRB; ++ib)
+        rs += rowT[(tile_id(tb, ib) - NRB) * 16 + tau];
+      for (int jb = 0; jb < tb; ++jb)
+        cs += colT[(tile_id(jb, tb) - NRB) * 16 + tau];
+      for (int jb = 0; jb < tb; ++jb)
+        for (int ib = tb + 1; ib < NRB; ++ib)
+          F += Sfull[tile_id(jb, ib) - NRB];
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) {
+        const double up = __shfl_up_sync(0xffffffffu, rs, off, 16);
+        const double down = __shfl_down_sync(0xffffffffu, cs, off, 16);
+        if (tau >= off) rs += up;
+        if (tau + off < 16) cs += down;
+      }
+      rs = __shfl_up_sync(0xffffffffu, rs, 1, 16);
+      if (tau == 0) rs = 0.0;
+      dain[tid] = ((box[tid] + rs) + cs) + F;
+    }
+
+    // d. the products: dx and dB by rows (R = C B^T f' with f' =
+    // e^{cum_m - cum_r}, m >= r, times dy; P times C), dC by columns
+    // (P^T, transposed in registers, times B); then each one's U H term,
+    // whose dH_c or h_{c-1} fragments the warp's two units share
+    const float Dh = scal[1 + GMAX + n];
+    const size_t xh = ((size_t)b * p.S + t0) * row + (size_t)h * p.hd;
+    {
+      float xi[2][4][4] = {}, xe[2][4][4] = {};
+      if (n0 < p.hd || n0 < p.ds)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int rb = ub[u];
+          for (int mb = rb; mb < NRB; ++mb) {
+            const int k = tile_id(rb, mb);
+            float rv[2][4] = {}, pv[2][4];
+            if (K == 1) {
+              get_frag(Rs, k, rv);
+            } else {
+              pair<T, LDS>(rv, Bs, Cs, rb, mb, dsteps);
+#pragma unroll
+              for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  const int i = rb * 16 + g + (e >> 1) * 8;
+                  const int m = mb * 16 + nn * 8 + 2 * t + (e & 1);
+                  rv[nn][e] *= m >= i ? decay(chi, clo, m, i) : 0.0f;
+                }
+            }
+            get_frag(Ps, k, pv);
+            uint32_t aR[3][4], aP[3][4], b0[K][4], b1[K][4];
+            split_a(rv, aR);
+            split_a(pv, aP);
+            if (n0 < p.hd) {
+              frag_b<T, LDS>(b0, Ys, mb * 16, n0);
+              frag_b<T, LDS>(b1, Ys, mb * 16, n0 + 16);
+              float st[4][4] = {};
+              mma32<3, K>(st, aR, b0, b1);
+              add_to(xi[u], st);
+            }
+            if (n0 < p.ds) {
+              frag_b<T, LDS>(b0, Cs, mb * 16, n0);
+              frag_b<T, LDS>(b1, Cs, mb * 16, n0 + 16);
+              float st[4][4] = {};
+              mma32<3, K>(st, aP, b0, b1);
+              add_to(dBacc[u], st);
+            }
+          }
+        }
+      // B dH^T, dH_c in 3 terms
+      if (n0 < p.hd)
+        for (int ks = 0; ks < dsteps; ++ks) {
+          uint32_t h0b[3][4], h1b[3][4];
+          frag_bt<float, HLD>(h0b, dHs, n0, ks * 16);
+          frag_bt<float, HLD>(h1b, dHs, n0 + 16, ks * 16);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            uint32_t a[K][4];
+            frag_a<T, LDS>(a, Bs, ub[u] * 16, ks * 16);
+            float st[4][4] = {};
+            mma32<K, 3>(st, a, h0b, h1b);
+            add_to(xe[u], st);
+          }
+        }
+      // dx, and the row sums x . dx' (in-chunk part and U H part) over
+      // this warp's 32 columns
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int rb = ub[u];
+        float r0[2] = {0.0f, 0.0f}, r1[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = rb * 16 + g + (e >> 1) * 8;
+            const int col = n0 + nn * 8 + 2 * t + (e & 1);
+            if (i >= p.Q || col >= p.hd) continue;
+            const float intra = xi[u][nn][e], inter = eQ[i] * xe[u][nn][e];
+            const float z = load(Ys, i * LDS + col);
+            store(static_cast<T*>(p.dx), xh + (size_t)i * row + col,
+                  dt[i] * (intra + inter) + Dh * z);
+            const float xv = load(Xs, i * LDS + col);
+            r0[e >> 1] += xv * intra;
+            r1[e >> 1] += xv * inter;
+          }
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int off = 1; off <= 2; off <<= 1) {
+            r0[q] += __shfl_xor_sync(0xffffffffu, r0[q], off);
+            r1[q] += __shfl_xor_sync(0xffffffffu, r1[q], off);
+          }
+        if (t == 0)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            part[(half * 3 + 0) * QM + rb * 16 + g + q * 8] = r0[q];
+            part[(half * 3 + 1) * QM + rb * 16 + g + q * 8] = r1[q];
+          }
+      }
+    }
+    {
+      // x dH_c, dB's U H term
+      float be[2][4][4] = {};
+      if (n0 < p.ds)
+        for (int ks = 0; ks < hsteps; ++ks) {
+          uint32_t h0b[3][4], h1b[3][4];
+          frag_b<float, HLD>(h0b, dHs, ks * 16, n0);
+          frag_b<float, HLD>(h1b, dHs, ks * 16, n0 + 16);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            uint32_t a[K][4];
+            frag_a<T, LDS>(a, Xs, ub[u] * 16, ks * 16);
+            float st[4][4] = {};
+            mma32<K, 3>(st, a, h0b, h1b);
+            add_to(be[u], st);
+          }
+        }
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = ub[u] * 16 + g + (e >> 1) * 8;
+            dBacc[u][nn][e] += (dt[i] * eQ[i]) * be[u][nn][e];
+          }
+    }
+    {
+      float ce[2][4][4] = {};
+      if (n0 < p.ds) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int kb = ub[u];
+          for (int mb = 0; mb <= kb; ++mb) {
+            float pv[2][4];
+            get_frag(Ps, tile_id(mb, kb), pv);
+            uint32_t aP[3][4], aT[3][4], b0[K][4], b1[K][4];
+            split_a(pv, aP);
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              aT[j][0] = movT(aP[j][0]);
+              aT[j][1] = movT(aP[j][2]);
+              aT[j][2] = movT(aP[j][1]);
+              aT[j][3] = movT(aP[j][3]);
+            }
+            frag_b<T, LDS>(b0, Bs, mb * 16, n0);
+            frag_b<T, LDS>(b1, Bs, mb * 16, n0 + 16);
+            float st[4][4] = {};
+            mma32<3, K>(st, aT, b0, b1);
+            add_to(dCacc[u], st);
+          }
+        }
+        // dy h_{c-1}, h_{c-1} in 3 terms
+        for (int ks = 0; ks < hsteps; ++ks) {
+          uint32_t h0b[3][4], h1b[3][4];
+          frag_b<float, HLD>(h0b, hs, ks * 16, n0);
+          frag_b<float, HLD>(h1b, hs, ks * 16, n0 + 16);
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            uint32_t a[K][4];
+            frag_a<T, LDS>(a, Ys, ub[u] * 16, ks * 16);
+            float st[4][4] = {};
+            mma32<K, 3>(st, a, h0b, h1b);
+            add_to(ce[u], st);
+          }
+        }
+      }
+      // dC's U H term e^{cum_k} dy_k h_{c-1} and its row sums C . dC_h
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int kb = ub[u];
+        float r4[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = kb * 16 + g + (e >> 1) * 8;
+            const int col = n0 + nn * 8 + 2 * t + (e & 1);
+            const float inter = ecum[i] * ce[u][nn][e];
+            dCacc[u][nn][e] += inter;
+            if (i < p.Q && col < p.ds)
+              r4[e >> 1] += load(Cs, i * LDS + col) * inter;
+          }
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+#pragma unroll
+          for (int off = 1; off <= 2; off <<= 1)
+            r4[q] += __shfl_xor_sync(0xffffffffu, r4[q], off);
+        if (t == 0)
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            part[(half * 3 + 2) * QM + kb * 16 + g + q * 8] = r4[q];
+      }
+    }
+    __syncthreads();
+    // the next head's dH_c and h_{c-1} (and, with one stage, x, dy, dt)
+    // load while this one's da is finished
+    if (n + 1 < hn) {
+      if (STG == 1) load_head(n + 1);
+      load_states(n + 1);
+      cp_commit();
+    }
+
+    // e. da_t = pair sums + sum_{i >= t} C . dC_h + sum_{j < t} dt x .
+    // dx_h + e^{cum_Q} <dH_c, h_{c-1}>, in double (the suffix and prefix
+    // sums as warp scans over 4 warps, the other warps' totals added in a
+    // fixed order); then ddt, and the chunk's parts of dA_log and dD
+    if (tid < QM) {
+      const float s0 = part[tid] + part[3 * QM + tid];
+      const float s1 = part[QM + tid] + part[4 * QM + tid];
+      double su = (double)(part[2 * QM + tid] + part[5 * QM + tid]);
+      double pr = (double)dt[tid] * s1;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const double up = __shfl_up_sync(0xffffffffu, pr, off);
+        const double down = __shfl_down_sync(0xffffffffu, su, off);
+        if (lane >= off) pr += up;
+        if (lane + off < 32) su += down;
+      }
+      if (lane == 31) red[16 + warp] = pr;
+      if (lane == 0) red[20 + warp] = su;
+      bar_step();
+      for (int w = 0; w < warp; ++w) pr += red[16 + w];
+      for (int w = QM / 32 - 1; w > warp; --w) su += red[20 + w];
+      double E = 0.0;
+      for (int w = 0; w < NT / 32; ++w) E += red[w];
+      E *= (double)scal[0];
+      double dtda = 0.0;
+      if (tid < p.Q) {
+        const double da = dain[tid] + su + (pr - (double)dt[tid] * s1) + E;
+        p.ddt[((size_t)b * p.S + t0 + tid) * p.nh + h] =
+            (float)((double)(s0 + s1) + (double)A * da);
+        dtda = (double)dt[tid] * da;
+      }
+      dtda = warp_sum(dtda);
+      if (lane == 0) red[24 + warp] = dtda;
+      bar_step();
+      if (tid == 0) {
+        double sa = 0.0, sd = 0.0;
+        for (int w = 0; w < QM / 32; ++w) sa += red[24 + w];
+        for (int w = 0; w < NT / 32; ++w) sd += red[8 + w];
+        p.dApart[((size_t)b * p.nc + c) * p.nh + h] = (float)sa;
+        p.dDpart[((size_t)b * p.nc + c) * p.nh + h] = (float)sd;
+      }
     }
   }
-  __syncthreads();
-  if (tid < p.Q) {   // row i: T's prefix over j < t, for t <= i, in place
-    double run = 0.0;
-    for (int j = 0; j <= tid; ++j) {
-      const float v = Ts[tid * TLD + j];
-      Ts[tid * TLD + j] = (float)run;
-      run += v;
-    }
-  }
-  // e^{cum_Q} <dH_c, h_{c-1}>, in a fixed order
-  double e = 0.0;
-  {
-    const float* dH = p.dstate + bhc * p.hd * p.ds;
-    const float* hp = p.states + bhc * p.hd * p.ds;
-    for (int k = tid; k < p.hd * p.ds; k += NT) e += (double)dH[k] * hp[k];
-  }
-  const double E = (double)expf((float)cum[QM - 1]) * block_sum(e, red);
-  const size_t plane = (size_t)p.Bb * p.nh * p.S;
-  const size_t at = ((size_t)b * p.nh + h) * p.S + t0;
-  float s0 = 0.0f, s1 = 0.0f;
-  double da = 0.0;
-  if (tid < QM) {
-    const bool in = tid < p.Q;
-    s0 = in ? p.rows[at + tid] : 0.0f;
-    s1 = in ? p.rows[plane + at + tid] : 0.0f;
-    su[tid] = in ? (double)p.rows[2 * plane + at + tid] : 0.0;
-    pr[tid] = (double)dts[tid] * s1;
-    for (int i = tid; i < p.Q; ++i) da += Ts[i * TLD + tid];   // i >= t
-  }
-  __syncthreads();
-  if (warp == 0) {
-    warp_scan(su, true);
-    warp_scan(pr, false);
-  }
-  __syncthreads();
-  double dtda = 0.0, xd_sum = 0.0;
-  if (tid < p.Q) {
-    da += su[tid] + (pr[tid] - (double)dts[tid] * s1) + E;
-    p.ddt[((size_t)b * p.S + t0 + tid) * p.nh + h] =
-        (float)((double)(s0 + s1 + bcd[tid] * xdy[tid]) + (double)A * da);
-    dtda = (double)dts[tid] * da;
-    xd_sum = xd_row;
-  }
-  const double sa = block_sum(dtda, red);
-  const double sd = block_sum(xd_sum, red);
-  if (tid == 0) {
-    p.dApart[((size_t)b * p.nc + c) * p.nh + h] = (float)sa;
-    p.dDpart[((size_t)b * p.nc + c) * p.nh + h] = (float)sd;
+
+  // f. the group's dB and dC parts
+  const size_t part0 = ((size_t)b * p.ng + grp) * p.S + t0;
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+#pragma unroll
+    for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = ub[u] * 16 + g + (e >> 1) * 8;
+        const int col = n0 + nn * 8 + 2 * t + (e & 1);
+        if (i >= p.Q || col >= p.ds) continue;
+        const size_t at = (part0 + i) * p.ds + col;
+        p.dBpart[at] = dBacc[u][nn][e];
+        p.dCpart[at] = dCacc[u][nn][e];
+      }
   }
 }
 
-// 5. dB and dC as the per-head parts summed over the heads in a fixed
-// order, in double, a thread an element of (Bb, S, ds); and dA_log = A
-// sum dt da and dD over (batch, chunk), a thread a head.
+// 4. dB and dC as the groups' parts summed in a fixed order, in double, a
+// thread an element of (Bb, S, ds); and dA_log = A sum dt da and dD over
+// (batch, chunk), a thread a head.
 template <typename T>
 __global__ void __launch_bounds__(NT) ssd_scan_bwd_sum(Params p) {
   const size_t e = (size_t)blockIdx.x * NT + threadIdx.x;
@@ -740,8 +1102,8 @@ __global__ void __launch_bounds__(NT) ssd_scan_bwd_sum(Params p) {
   if (e < n) {
     const size_t b = e / sd, rem = e % sd;
     double sb = 0.0, sc = 0.0;
-    for (int h = 0; h < p.nh; ++h) {
-      const size_t off = ((size_t)b * p.nh + h) * sd + rem;
+    for (int q = 0; q < p.ng; ++q) {
+      const size_t off = ((size_t)b * p.ng + q) * sd + rem;
       sb += p.dBpart[off];
       sc += p.dCpart[off];
     }
@@ -762,41 +1124,19 @@ __global__ void __launch_bounds__(NT) ssd_scan_bwd_sum(Params p) {
 constexpr size_t state_smem(int K) {
   return QM * 8 + 2 * QM * 4 + 2 * (size_t)K * QM * LD * 2;
 }
-constexpr size_t chunk_smem(int K) {
-  return QM * 8 + 9 * QM * 4 + 3 * (size_t)K * QM * LD * 2
-      + 3 * (size_t)HM * LD * 2;
-}
-constexpr size_t da_smem(int K) {
-  return 3 * QM * 8 + NT * 8 + 5 * QM * 4 + (size_t)QM * TLD * 4
-      + 2 * (size_t)K * QM * LD * 2;
-}
-static_assert(chunk_smem(3) <= 232448, "ssd_scan_bwd_chunk fits an SM in fp32");
-static_assert(da_smem(3) <= 232448, "ssd_scan_bwd_da fits an SM in fp32");
-static_assert(2 * chunk_smem(1) <= 233472 && 2 * da_smem(1) <= 233472,
-              "two blocks an SM in bf16");
 
 template <typename T>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int K = terms<T>();
-  const dim3 grid(p.nc, p.nh, p.Bb);
   cudaError_t e = launch_opt_in<ssd_scan_bwd_state<T>>(
-      grid, NT, state_smem(K), state_smem(K), p, stream);
+      dim3(p.nc, p.nh, p.Bb), NT, state_smem(K), state_smem(K), p, stream);
   if (e != cudaSuccess) return e;
   ssd_scan_bwd_pass<<<dim3((p.hd * p.ds + 4 * NT - 1) / (4 * NT),
                            p.Bb * p.nh), NT, 0, stream>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  e = launch_opt_in<ssd_scan_bwd_chunk<T, DX>>(
-      grid, NT, chunk_smem(K), chunk_smem(K), p, stream);
-  if (e != cudaSuccess) return e;
-  e = launch_opt_in<ssd_scan_bwd_chunk<T, DB>>(
-      grid, NT, chunk_smem(K), chunk_smem(K), p, stream);
-  if (e != cudaSuccess) return e;
-  e = launch_opt_in<ssd_scan_bwd_chunk<T, DC>>(
-      grid, NT, chunk_smem(K), chunk_smem(K), p, stream);
-  if (e != cudaSuccess) return e;
-  e = launch_opt_in<ssd_scan_bwd_da<T>>(grid, NT, da_smem(K), da_smem(K),
-                                        p, stream);
+  e = launch_opt_in<ssd_scan_bwd_chunk<T>>(
+      dim3(p.nc, p.ng, p.Bb), NT, Smem<T>::TOTAL, Smem<T>::TOTAL, p, stream);
   if (e != cudaSuccess) return e;
   const size_t n = (size_t)p.Bb * p.S * p.ds;
   const size_t m = n > (size_t)p.nh ? n : (size_t)p.nh;
@@ -807,22 +1147,22 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 }  // namespace
 
 // dtype (of x, dy, B, C, dx, dB, dC): 0 = float32, 1 = bfloat16. dhT may
-// be null. dstate, decay, dBpart, dCpart, rows, dApart and dDpart are the
-// wrapper's fp32 scratch of (Bb, nh, S / Q, hd, ds), (Bb, nh, S / Q),
-// (Bb, nh, S, ds) twice, (3, Bb, nh, S) and (Bb, S / Q, nh) twice floats.
-// Returns the first CUDA error of the seven launches (0 on success); the
-// wrapper raises on anything else. The wrapper has checked Q <= 128, hd
-// <= 64, ds <= 64, S % Q == 0.
+// be null. G: heads a chunk block, 1..8. dstate, decay, dBpart, dCpart,
+// dApart and dDpart are the wrapper's fp32 scratch of (Bb, nh, S / Q, hd,
+// ds), (Bb, nh, S / Q), (Bb, ceil(nh / G), S, ds) twice and (Bb, S / Q,
+// nh) twice floats. Returns the first CUDA error of the four launches (0
+// on success); the wrapper raises on anything else. The wrapper has
+// checked Q <= 128, hd <= 64, ds <= 64, S % Q == 0.
 extern "C" int ssd_scan_bwd_launch(
     const void* x, const void* dt, const void* A_log, const void* B,
     const void* C, const void* D, const void* states, const void* dy,
     const void* dhT, void* dx, void* ddt, void* dA_log, void* dB, void* dC,
     void* dD, void* dstate, void* decay, void* dBpart, void* dCpart,
-    void* rows, void* dApart, void* dDpart, int dtype, int Bb, int S,
-    int nh, int hd, int ds, int Q, long long bc_bstride,
-    long long bc_tstride, void* stream) {
+    void* dApart, void* dDpart, int dtype, int Bb, int S, int nh, int hd,
+    int ds, int Q, int G, long long bc_bstride, long long bc_tstride,
+    void* stream) {
   if (Q < 1 || Q > QM || hd < 1 || hd > HM || ds < 1 || ds > DM ||
-      S % Q != 0)
+      S % Q != 0 || G < 1 || G > GMAX)
     return (int)cudaErrorInvalidValue;
   Params p{x, static_cast<const float*>(dt),
            static_cast<const float*>(A_log), B, C,
@@ -831,9 +1171,9 @@ extern "C" int ssd_scan_bwd_launch(
            static_cast<float*>(ddt), static_cast<float*>(dA_log), dB, dC,
            static_cast<float*>(dD), static_cast<float*>(dstate),
            static_cast<float*>(decay), static_cast<float*>(dBpart),
-           static_cast<float*>(dCpart), static_cast<float*>(rows),
-           static_cast<float*>(dApart), static_cast<float*>(dDpart), Bb, S,
-           nh, hd, ds, Q, S / Q, bc_bstride, bc_tstride};
+           static_cast<float*>(dCpart), static_cast<float*>(dApart),
+           static_cast<float*>(dDpart), Bb, S, nh, hd, ds, Q, S / Q, G,
+           (nh + G - 1) / G, bc_bstride, bc_tstride};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)launch<float>(p, s);
   if (dtype == 1) return (int)launch<__nv_bfloat16>(p, s);

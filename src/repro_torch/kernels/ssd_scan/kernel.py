@@ -6,7 +6,7 @@ are built with nvcc for sm_90a at first launch through
 `kernels/_build.py`; nothing is built or loaded at import. Every launch
 adds one to `KERNEL.launches`. The backward has no TPU counterpart (the
 reference takes jax.grad of its jnp scan); it is its own library with
-its own count, `KERNEL_BWD.launches`, one a call of its seven kernels.
+its own count, `KERNEL_BWD.launches`, one a call of its four kernels.
 """
 from __future__ import annotations
 
@@ -22,12 +22,14 @@ KERNEL = CudaLibrary("ssd_scan.cu", "ssd_scan", {
                         + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
                         ctypes.c_int)})
 KERNEL_BWD = CudaLibrary("ssd_scan_bwd.cu", "ssd_scan_bwd", {
-    "ssd_scan_bwd_launch": ([ctypes.c_void_p] * 22 + [ctypes.c_int] * 7
+    "ssd_scan_bwd_launch": ([ctypes.c_void_p] * 21 + [ctypes.c_int] * 8
                             + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
                             ctypes.c_int)})
 CHUNK = 128          # the TPU kernel's chunk; also the largest supported
                      # and the edge of the kernel's C B^T tiles
 MAX_HD = MAX_DS = 64
+MAX_HEADS_PER_BLOCK = 8   # the backward's chunk kernel: heads a block
+MIN_HEADS_PER_BLOCK = 4
 
 
 def _check(x, dt, A_log, B, C, D, chunk):
@@ -99,6 +101,22 @@ def ssd_scan_fwd(x, dt, A_log, B, C, D, *, chunk=CHUNK):
     return y, hT, states
 
 
+def heads_per_block(Bb, nh, nc, sms):
+    """The heads G that one block of the backward's chunk kernel takes,
+    for (Bb, nh, nc) = (batch, heads, chunks) on a card of `sms` SMs. The
+    kernel runs one block an SM, and a block's time grows with its heads,
+    so the call's time goes as the block waves, ceil(Bb nc ceil(nh / G) /
+    sms), times G: the G from 8 down to 4 (at most nh) with the least of
+    that, the largest on a tie (fewer group parts of dB and dC to sum)."""
+    best = None
+    for G in range(min(MAX_HEADS_PER_BLOCK, nh),
+                   min(MIN_HEADS_PER_BLOCK, nh) - 1, -1):
+        waves = -(-Bb * nc * -(-nh // G) // sms)
+        if best is None or waves * G < best[0]:
+            best = (waves * G, G)
+    return best[1]
+
+
 def ssd_scan_bwd(x, dt, A_log, B, C, D, states, dy, dhT=None, *,
                  chunk=CHUNK):
     """Gradients of `ssd_scan` (the plain version is
@@ -108,10 +126,11 @@ def ssd_scan_bwd(x, dt, A_log, B, C, D, states, dy, dhT=None, *,
     (Bb, nh, hd, ds) fp32 or None (zeros). Returns (dx of x's dtype, ddt
     (Bb, S, nh) fp32, dA_log (nh,) fp32, dB, dC (Bb, S, ds) contiguous of
     x's dtype, dD (nh,) fp32). One launch (one count of `KERNEL_BWD`)
-    runs the source's seven kernels on the fp32 scratch allocated here:
-    the gradient's chunk states and the chunks' decays, the per-head parts
-    of dB and dC, three per-step sums and the per-chunk parts of dA_log
-    and dD; the same inputs give the same bits."""
+    runs the source's four kernels on the fp32 scratch allocated here:
+    the gradient's chunk states and the chunks' decays, the head groups'
+    parts of dB and dC (a block of the chunk kernel takes
+    `heads_per_block` heads) and the per-chunk parts of dA_log and dD; the
+    same inputs give the same bits."""
     if x.dim() != 4 or B.dim() != 3:
         _check(x, dt, A_log, B, C, D, chunk)     # raises
     Bb, S, nh, hd = x.shape
@@ -139,11 +158,13 @@ def ssd_scan_bwd(x, dt, A_log, B, C, D, states, dy, dhT=None, *,
     dC = torch.empty_like(dB)
     dD = torch.zeros((nh,), **f32)
     if Bb * nh:
+        G = heads_per_block(
+            Bb, nh, nc,
+            torch.cuda.get_device_properties(x.device).multi_processor_count)
         dstate = torch.empty((Bb, nh, nc, hd, ds), **f32)
         decay = torch.empty((Bb, nh, nc), **f32)
-        dBpart = torch.empty((Bb, nh, S, ds), **f32)
+        dBpart = torch.empty((Bb, -(-nh // G), S, ds), **f32)
         dCpart = torch.empty_like(dBpart)
-        rows = torch.empty((3, Bb, nh, S), **f32)
         dApart = torch.empty((Bb, nc, nh), **f32)
         dDpart = torch.empty_like(dApart)
         KERNEL_BWD.launch(
@@ -153,11 +174,11 @@ def ssd_scan_bwd(x, dt, A_log, B, C, D, states, dy, dhT=None, *,
             None if dhT is None else dhT.data_ptr(), dx.data_ptr(),
             ddt.data_ptr(), dA_log.data_ptr(), dB.data_ptr(), dC.data_ptr(),
             dD.data_ptr(), dstate.data_ptr(), decay.data_ptr(),
-            dBpart.data_ptr(), dCpart.data_ptr(), rows.data_ptr(),
-            dApart.data_ptr(), dDpart.data_ptr(), code, Bb, S, nh, hd, ds, Q,
+            dBpart.data_ptr(), dCpart.data_ptr(), dApart.data_ptr(),
+            dDpart.data_ptr(), code, Bb, S, nh, hd, ds, Q, G,
             B.stride(0), B.stride(1),
-            at=f"(Bb, S, nh, hd, ds, Q) = {(Bb, S, nh, hd, ds, Q)}, "
-               f"{x.dtype}")
+            at=f"(Bb, S, nh, hd, ds, Q, G) = "
+               f"{(Bb, S, nh, hd, ds, Q, G)}, {x.dtype}")
     else:
         dB.zero_()
         dC.zero_()

@@ -397,30 +397,75 @@ def test_ssd_ops_gradient_on_cpu_through_the_padding():
     _hold_grads(got, want, 1e-5, names=SSD_GRADS)
 
 
+def _group_sum(parts, G):
+    """(nh, ...) per-head float32 parts summed as the ssd backward sums
+    dB and dC: in float32 over each group of G heads in head order, then
+    over the groups in double."""
+    groups = []
+    for g0 in range(0, parts.shape[0], G):
+        acc = torch.zeros_like(parts[0])
+        for h in range(g0, min(parts.shape[0], g0 + G)):
+            acc = acc + parts[h]
+        groups.append(acc)
+    return torch.stack(groups).double().sum(0).float()
+
+
+def _pair_sums(Tt):
+    """da's pair sums as the ssd backward takes them: for every step t of
+    a chunk, the sum of Tt[r, m] over r < t <= m (Tt (..., Q, Q), zero off
+    r < m, Q a multiple of 16), from its 16 x 16 tiles in double: the
+    diagonal tile's box, the exclusive prefix over r < t of the row sums
+    of the tiles right of it, the inclusive suffix over m >= t of the
+    column sums of the tiles above it (each tile's row and column sums
+    rounded to float32), and the tiles wholly on both sides of t. No pair
+    is added and taken away again."""
+    Q = Tt.shape[-1]
+    nb = Q // 16
+    T = Tt.double().reshape(*Tt.shape[:-2], nb, 16, nb, 16)
+    r, m, s = (torch.arange(16)[:, None, None], torch.arange(16)[None, :, None],
+               torch.arange(16)[None, None, :])
+    inbox = ((r < s) & (s <= m)).double()                  # [r, m, t]
+    diag = torch.diagonal(T, dim1=-4, dim2=-2)             # (..., r, m, b)
+    box = torch.einsum("...rmb,rmt->...bt", diag, inbox)   # (..., b, t)
+    right = torch.triu(torch.ones(nb, nb), 1).double()     # [rb, mb], mb > rb
+    rowT = T.sum(-1).float().double()                      # (..., rb, r, mb)
+    rs = (rowT * right[:, None, :]).sum(-1)                # (..., b, r)
+    colT = T.sum(-3).float().double()                      # (..., rb, mb, m)
+    cs = (colT * right[:, :, None]).sum(-3)                # (..., b, m)
+    S = T.sum((-1, -3))                                    # (..., rb, mb)
+    b = torch.arange(nb)
+    both = ((b[:, None, None] < b[None, None, :])
+            & (b[None, None, :] < b[None, :, None])).double()  # [rb, mb, t]
+    F = torch.einsum("...jm,jmb->...b", S, both)
+    pre = torch.cumsum(rs, -1)
+    pre = torch.cat([torch.zeros_like(pre[..., :1]), pre[..., :-1]], -1)
+    suf = cs.flip(-1).cumsum(-1).flip(-1)
+    return (((box + pre) + suf) + F[..., None]).reshape(*Tt.shape[:-1])
+
+
 def _ssd_bwd_emulated(x, dt, A_log, B, C, D, dy, dhT, n_in, Q=128,
-                      split=True):
+                      split=True, G=4):
     """The arithmetic of the CUDA ssd_scan backward in float32 torch on
     one batch row, from the forward kernel's chunk states
     (`_ssd_emulated`): cum in double, every decay exp(cum_i - cum_j) with
     j <= i (or exp(cum_Q - cum_j), exp(cum_j)) from cum as a float pair,
     so no factor exceeds 1. The gradient's chunk states ds_c = sum_k
     e^{cum_k} dy_k C_k^T and the reverse pass over chunks give dH_c, the
-    gradient of the state a chunk leaves. Then three passes of one shape,
-    each out[r] = sum over pairs m (m > r for dx and dB, m < r for dC,
-    the pair r = m apart) of (U_r . W_m) f(r, m) Z_m, plus the pair r = m,
-    plus g(r) U_r H: dx (U, W, Z, H = B, C, dy, dH^T), dB (x, dy, C, dH)
-    and dC (dy, x, B, h_{c-1}), each fp32 factor split into 3 bf16 terms
-    and x, dy, B, C into n_in (1: bf16, exact; 3: fp32). ddt is x . (G B)
-    plus A da: da_t sums the pairs j < t <= i of T[i, j] = (dy_i . x_j)
-    (C_i . B_j) e^{cum_i - cum_j} dt_j (each row's prefix over j, then a
-    sum over i >= t; the pairs i = j, whose exponent is 0, count nowhere)
-    and adds, in double, a suffix sum of C . dC_h, a prefix sum of dt x .
-    dx_h (the chunk-state side; its last term, exponent 0, counts
-    nowhere) and e^{cum_Q} <dH_c, h_{c-1}>. dB and dC are summed over
-    heads in double. `split=False` takes every product in plain float32 (the
-    algebra alone). x, dy (S, nh, hd), dt (S, nh), B/C (S, ds), dhT (nh,
-    hd, ds) or None -> [dx (S, nh, hd), ddt (S, nh), dA_log (nh,), dB, dC
-    (S, ds), dD (nh,)] before any output rounding."""
+    gradient of the state a chunk leaves. Then, from the pair matrices
+    (m >= r) P[r, m] = e^{cum_m - cum_r} dt_r (x_r . dy_m) and R[r, m] =
+    e^{cum_m - cum_r} (B_r . C_m): dx' = R dy + e^{cum_Q - cum_r} B dH^T,
+    dB = P C + dt e^{cum_Q - cum_r} x dH and dC = P^T B + e^{cum_k} dy
+    h_{c-1}, each fp32 factor (P, R, dH, h) split into 3 bf16 terms and x,
+    dy, B, C into n_in (1: bf16, exact; 3: fp32). ddt is x . dx' plus A
+    da: da_t sums the pairs r < t <= m of (P . C B^T)[r, m] (`_pair_sums`;
+    the pairs r = m, whose exponent is 0, count nowhere) and adds, in
+    double, a suffix sum of C . dC_h, a prefix sum of dt x . dx_h (the
+    chunk-state side; its last term, exponent 0, counts nowhere) and
+    e^{cum_Q} <dH_c, h_{c-1}>. dB and dC are summed over heads by
+    `_group_sum` in groups of G. `split=False` takes every product in
+    plain float32 (the algebra alone). x, dy (S, nh, hd), dt (S, nh), B/C
+    (S, ds), dhT (nh, hd, ds) or None -> [dx (S, nh, hd), ddt (S, nh),
+    dA_log (nh,), dB, dC (S, ds), dD (nh,)] before any output rounding."""
     S, nh, hd = x.shape
     ds = B.shape[-1]
     nc = S // Q
@@ -435,13 +480,9 @@ def _ssd_bwd_emulated(x, dt, A_log, B, C, D, dy, dhT, n_in, Q=128,
     hi = cum.float()
     lo = (cum - hi.double()).float()
     r, m = torch.arange(Q)[:, None], torch.arange(Q)[None, :]
-
-    def decay(later, earlier, mask):            # exp(cum_later - cum_earlier)
-        ex = (hi[..., later] - hi[..., earlier]) + (lo[..., later]
-                                                    - lo[..., earlier])
-        return torch.exp(torch.where(mask, ex, float("-inf")))
-    anti = decay(m.expand(Q, Q), r.expand(Q, Q), m > r)    # [r, m], m > r
-    causal = decay(r.expand(Q, Q), m.expand(Q, Q), m < r)  # [r, m], m < r
+    ex = (hi[..., None, :] - hi[..., :, None]) + (lo[..., None, :]
+                                                  - lo[..., :, None])
+    dec = torch.exp(torch.where(m >= r, ex, float("-inf")))  # [r, m], m >= r
     eQ = torch.exp((cum[..., -1:] - cum).float())          # (nh, nc, Q)
     ecum = torch.exp(cum.float())
     # 1-2. the gradient's chunk states and the reverse pass
@@ -453,55 +494,52 @@ def _ssd_bwd_emulated(x, dt, A_log, B, C, D, dy, dhT, n_in, Q=128,
         dHc[c] = dH
         dH = dH * decay_c[:, c, None, None] + dsc[:, c]
     dHs = torch.stack(dHc, 1)                              # (nh, nc, hd, ds)
-    # 3. the three passes
-    xdy = (xc * dyc).sum(-1)                               # (nh, nc, Q)
-    xdy64 = (xc.double() * dyc.double()).sum(-1)   # the da kernel's
-    bcd = (Bc * Cc).sum(-1)                                # (nc, Q)
+    # 3. the pair matrices and the products
+    xdy64 = (xc.double() * dyc.double()).sum(-1)           # dD's rows
     Bh, Ch = Bc.expand(nh, -1, -1, -1), Cc.expand(nh, -1, -1, -1)
-    # dx: U = B, W = C, Z = dy, H = dH^T; f = exp(cum_m - cum_r)
-    P = mm(Bc, Cc.transpose(-1, -2), n_in, n_in) * anti
-    x_strict = mm(P, dyc, 3, n_in)
+    CB = mm(Bc, Cc.transpose(-1, -2), n_in, n_in)          # [r, m] = B_r . C_m
+    P = mm(xc, dyc.transpose(-1, -2), n_in, n_in) * (dec * dtc[..., :, None])
+    x_intra = mm(CB * dec, dyc, 3, n_in)
     x_inter = eQ[..., None] * mm(Bh, dHs.transpose(-1, -2), n_in, 3)
-    dxs = x_strict + x_inter + bcd[..., None] * dyc
-    dx = dtc[..., None] * dxs + D[:, None, None, None] * dyc
-    s0 = (xc * x_strict).sum(-1)
+    dx = dtc[..., None] * (x_intra + x_inter) + D[:, None, None, None] * dyc
+    s0 = (xc * x_intra).sum(-1)
     s1 = (xc * x_inter).sum(-1)
-    # dB: U = x, W = dy, Z = C, H = dH; f = exp(cum_m - cum_r) dt_r
-    P = mm(xc, dyc.transpose(-1, -2), n_in, n_in) * anti \
-        * dtc[..., :, None]
-    dBp = mm(P, Ch, 3, n_in) + (dtc * eQ)[..., None] * mm(xc, dHs, n_in, 3) \
-        + (xdy * dtc)[..., None] * Cc
-    # dC: U = dy, W = x, Z = B, H = h_{c-1}; f = exp(cum_r - cum_m) dt_m
-    P = mm(dyc, xc.transpose(-1, -2), n_in, n_in) * causal \
-        * dtc[..., None, :]
+    dBp = mm(P, Ch, 3, n_in) + (dtc * eQ)[..., None] * mm(xc, dHs, n_in, 3)
     c_inter = ecum[..., None] * mm(dyc, hp, n_in, 3)
-    dCp = mm(P, Bh, 3, n_in) + c_inter + (xdy * dtc)[..., None] * Bc
+    dCp = mm(P.transpose(-1, -2), Bh, 3, n_in) + c_inter
     s4 = (Cc * c_inter).sum(-1)
-    # 4. da: the pairs j < t <= i of T[i, j] = (dy_i . x_j) (C_i . B_j)
-    # e^{cum_i - cum_j} dt_j, row by row a prefix over j, then for each t
-    # a sum over i >= t (no pair is added and taken away again); a suffix
-    # sum of C . dC_h and a prefix sum of dt x . dx_h in double; and
-    # e^{cum_Q} <dH_c, h_{c-1}>
-    T = mm(dyc, xc.transpose(-1, -2), n_in, n_in) \
-        * mm(Cc, Bc.transpose(-1, -2), n_in, n_in) * causal \
-        * dtc[..., None, :]
-    rp = torch.cumsum(T, -1) - T                           # sum over j < t
-    da_in = torch.where(r >= m, rp, 0.0).double().sum(-2)  # over i >= t
+    # 4. da: the pair sums of (P . C B^T)[r, m], m > r; a suffix sum of
+    # C . dC_h and a prefix sum of dt x . dx_h in double; and e^{cum_Q}
+    # <dH_c, h_{c-1}>
+    Tt = torch.where(m > r, P * CB, 0.0)
+    da_in = _pair_sums(Tt)
     E = decay_c.double() * (dHs * hp).double().sum((-1, -2))  # (nh, nc)
     suf = s4.double().flip(-1).cumsum(-1).flip(-1)
     pre = torch.cumsum(dtc.double() * s1.double(), -1) \
         - dtc.double() * s1.double()
     da = da_in + suf + pre + E[..., None]
-    ddt = ((s0 + s1 + bcd * xdy64.float()).double()
-           + A[:, None, None] * da).float()
+    ddt = ((s0 + s1).double() + A[:, None, None] * da).float()
     dA = (A * (dtc.double() * da).sum((-1, -2))).float()
     dD = xdy64.sum(-1).float().double().sum(-1).float()   # chunk parts
     # 5. dB and dC summed over heads
-    dB = dBp.double().sum(0).float().reshape(S, ds)
-    dC = dCp.double().sum(0).float().reshape(S, ds)
+    dB = _group_sum(dBp.reshape(nh, S, ds), G)
+    dC = _group_sum(dCp.reshape(nh, S, ds), G)
     dx = dx.permute(1, 2, 0, 3).reshape(S, nh, hd)
     ddt = ddt.permute(1, 2, 0).reshape(S, nh)
     return [dx, ddt, dA, dB, dC, dD]
+
+
+def test_pair_sums_take_each_pair_once():
+    """`_pair_sums` (the ssd backward's order of da's pair sums) equals
+    the sum over r < t <= m taken pair by pair, at chunk 128 and 32."""
+    rng = np.random.default_rng(53)
+    for Q in (128, 32):
+        Tt = torch.triu(torch.as_tensor(rng.standard_normal((2, Q, Q))), 1)
+        r, m = np.arange(Q)[:, None], np.arange(Q)[None, :]
+        want = torch.stack([(Tt * torch.as_tensor((r < t) & (t <= m))).sum(
+            (-1, -2)) for t in range(Q)], -1)
+        assert torch.allclose(_pair_sums(Tt.float()), want, rtol=1e-6,
+                              atol=1e-5)
 
 
 @pytest.mark.parametrize("dtype,strong", [("float32", False),
@@ -1212,21 +1250,42 @@ def test_ssd_bwd_kernel_wrapper_raises(bad):
     assert skernel.KERNEL_BWD.launches == before
 
 
+@pytest.mark.parametrize("Bb,nh,nc,sms,want", [
+    (2, 112, 16, 132, 7),    # a zamba2-7b microbatch: 512 blocks, 4 waves
+    (4, 112, 16, 132, 8),    # batch 4: 896 blocks, 7 waves
+    (2, 5, 2, 132, 4),       # one wave: 4 heads and a ragged group of 1
+    (1, 2, 1, 132, 2),       # fewer heads than the smallest group
+    (1, 1, 1, 132, 1),
+    (8, 112, 16, 132, 8)])
+def test_ssd_bwd_heads_per_block(Bb, nh, nc, sms, want):
+    """The chunk kernel's head group: the G in 8..4 (at most nh) with the
+    fewest block waves times G, the largest on a tie, and never more than
+    8 heads a block or a group beyond nh."""
+    G = skernel.heads_per_block(Bb, nh, nc, sms)
+    assert G == want
+    assert 1 <= G <= min(skernel.MAX_HEADS_PER_BLOCK, nh)
+    waves = lambda g: -(-Bb * nc * -(-nh // g) // sms)  # noqa: E731
+    assert all(waves(G) * G <= waves(g) * g
+               for g in range(min(4, nh), min(8, nh) + 1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_dhT", [True, False])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,chunk,strong", [
     ((2, 256, 4, 64, 64), 128, False), ((1, 100, 2, 32, 16), 64, False),
     ((2, 300, 3, 64, 64), 128, False), ((1, 40, 2, 16, 8), 128, False),
-    ((2, 256, 2, 64, 64), 128, True)])
+    ((2, 256, 2, 64, 64), 128, True), ((2, 256, 5, 64, 64), 128, False),
+    ((2, 128, 3, 64, 64), 128, False)])
 def test_cuda_ssd_gradient_takes_the_backward_kernel(cuda_device, shape,
                                                      chunk, strong, dtype,
                                                      with_dhT):
     """On CUDA tensors that require grad ops.ssd_scan runs the forward
     kernel inside its autograd Function and the backward kernel once (no
     plain version), with B and C views of one tensor as ssm_forward passes
-    them, at ragged lengths (S = 100, 300, 40) and at a per-step log
-    decay down to -18: every gradient, with and without a gradient on
+    them, at ragged lengths (S = 100, 300, 40), a single chunk (S = 128),
+    five heads (a group of 4 and a ragged group of 1) and at a per-step
+    log decay down to -18: every gradient, with and without a gradient on
     h_T, agrees with the plain backward on the same inputs (fp32: 1e-5 of
     each gradient's largest entry; bf16: one bf16 step at the top of the
     range for dx, dB, dC, rounded to bf16, 1e-5 for the fp32 ddt, dA_log
@@ -1262,15 +1321,17 @@ def test_cuda_ssd_gradient_takes_the_backward_kernel(cuda_device, shape,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 1024, 16, 64, 64), (2, 256, 5, 64, 64),
+                                   (2, 128, 3, 64, 64)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_ssd_bwd_kernel_is_deterministic(cuda_device, dtype):
-    """Over 8 chunks of 128 and 16 heads, as a layer calls it (no d h_T):
-    two calls of the backward kernel give the same bits in all six
+def test_cuda_ssd_bwd_kernel_is_deterministic(cuda_device, dtype, shape):
+    """As a layer calls it (no d h_T), over 8 chunks of 128 and 16 heads,
+    five heads (a head group of 4 and a ragged one of 1) and a single
+    chunk: two calls of the backward kernel give the same bits in all six
     gradients (no atomics; every sum in a fixed order), and the gradients
     agree with the plain backward."""
     dt_ = getattr(torch, dtype)
-    x, dt, A_log, bc, D, dy, _ = _ssd_grad_case(52, (2, 1024, 16, 64, 64),
-                                                cuda_device, dt_)
+    x, dt, A_log, bc, D, dy, _ = _ssd_grad_case(52, shape, cuda_device, dt_)
     B, C = bc.split(64, dim=-1)
     _, _, states = skernel.ssd_scan_fwd(x, dt, A_log, B, C, D)
     first = skernel.ssd_scan_bwd(x, dt, A_log, B, C, D, states, dy)
