@@ -10,20 +10,24 @@
    ssd_scan_bwd, wkv_scan and its backward wkv_scan_bwd) with nvcc for
    sm_90a, one nvcc each, started together, and prints each build's
    seconds and ptxas register / shared-memory report.
-3. Kernel: both entry points of ensemble_fitness at the main path's
-   shapes and at edge shapes (dense rows, non-binary rows, all-zero and
-   single-member rows, ragged row counts), each held against its plain
+3. Kernel: both entry points of ensemble_fitness at the main paths'
+   shapes (the sync slice's (32, 100, 100) and (32, 200, 100), the async
+   configurations' (64, 24, 16) and (64, 24, 128)), a batch padded by
+   duplicated clients as the engine pads a select (their objectives must
+   equal the original's bitwise), and at edge shapes (dense rows,
+   non-binary rows, all-zero and single-member rows, ragged row counts),
+   each held against its plain
    PyTorch version (max abs error <= 1e-5), and timed with CUDA events
    against the plain version (in turns: plain, kernel, kernel, plain),
    with the kernel's device time from torch.profiler beside it and the
    bound (pop read whole, the entries of acc and S its rows' nonzeros
    pick, the (N, P, 2) objectives written; the count with S whole is
    printed beside it).
-4. Slice: the paper's synchronous configuration (configs/paper_cnn.py,
-   full=True: 20 clients, 5 CNN families, width 16, 10 classes, 60000
-   synthetic 10x10x3 images, Dirichlet 0.1, NSGA-II 100 x 100, k = 5)
-   with local training cut from 60 epochs to 2; selection scores every
-   population through the kernel.
+4. Slice: the paper's synchronous configuration (the port's
+   configs/paper_cnn.py, full=True: 20 clients, 5 CNN families, width
+   16, 10 classes, 60000 synthetic 10x10x3 images, Dirichlet 0.1,
+   NSGA-II 100 x 100, k = 5) with local training cut from 60 epochs to
+   2; selection scores every population through the kernel.
    The launch count is reset just before the run and must come out at
    2 * generations + 1 per selection. Two more selections of the same
    engine state must give identical populations, objectives and winners
@@ -33,6 +37,32 @@
    same selection through that version's per-call fitness wrapper (a
    diag(S) copy, two outputs, a stack), which must launch at least 201
    more.
+4b. Async, configuration 8: the same configuration on the asynchronous
+   event loop (speed sigma 0.6, link latency 0.05, train cost affine(1.0,
+   0.3), select_debounce 0.5, ideal links, observability on) with the
+   slice's datasets and trained models injected: every arrival is one
+   CNN forward on the receiver's validation set, every debounced select
+   tick one batched selection of the ready clients (padded to a power of
+   two, gathered from the resident buffers). Its events, bench sizes and
+   select batches must equal the port's scheduler run again on the CPU
+   with a stub selection; fitness launches must be 201 x the batches
+   that ran a GA; coverage 1.0; fleet-mean test accuracy above chance;
+   no client's last validation accuracy more than 0.05 below its first.
+   Prints batches, client selections, wall, net_s and select_s (ms a
+   batch beside the sync round's select), t_full and peak memory.
+4c. Async, configuration 9: examples/gossip_churn.py at its full size
+   (prediction world of 64 clients x 2 models, V = 128, C = 8, world
+   seed 17; small-world k = 4; lossy gossip with inboxes of 64, push,
+   lognormal churn; select_debounce 0.5; GA 24 x 8, k = 5) on the card
+   at store capacity 16 (traced, both sinks written and read back as
+   strict JSON) and unbounded, and at capacity 16 on the CPU. Card and
+   CPU must give equal events, net dicts, bench sizes, select batches
+   and selection keys; fitness launches 17 x the batches that ran; the
+   bounded-vs-unbounded gap of the final mean validation accuracy <=
+   0.02; after the bounded run the cached acc must equal a one-shot
+   selection_stats exactly and S within 2e-4, and a gather of a batch
+   with repeated clients must equal the resident rows bitwise. Prints MB
+   on the wire, coverage, net_s / select_s, events/s and the metrics.
 5. Kernel: flash_attention at the reference's test shapes and variants,
    head dim 112, bf16 window and softcap at hd 64, 112 and 128, a ragged
    S = 100, the serving slice's shape (4, 32, 8, 2048, 2048, 128),
@@ -155,7 +185,9 @@
    kernel, with the scan kernels' share of it.
 12. Every share of bound printed (bound / time) must be <= 1.05: a
    kernel faster than its bound means the bound is no floor. The shares,
-   the `kernels` JSON line, then the result line.
+   the `kernels` JSON line (ensemble_fitness's `launches` is the sync
+   slice's count; `launches_by_path` adds each async run's, `by_shape`
+   the timings at every path's shape), then the result line.
 
 Exits non-zero at the first failure, and when no CUDA device is present.
 TF32 is off for cuBLAS and cuDNN throughout, so every fp32 product is a
@@ -197,20 +229,16 @@ SSD_SLICE = (4, 2048, 112, 64, 64)     # zamba2-7b prefill, batch 4
 WKV_SLICE = (4, 2048, 40, 64)          # rwkv6-3b prefill, batch 4
 SELECT_LAUNCHES_DENSE = 43055  # kernels of one profiled select() with
                                # the dense-form fitness kernel, H100
-PAPER_SPEC = {
-    "data": {"kind": "synthetic_images", "n_clients": 20, "n_classes": 10,
-             "n_samples": 60000, "image_size": 10, "channels": 3,
-             "alpha": 0.1},
-    "train": {"families": ["cnn4", "vgg", "resnet", "densenet",
-                           "inception"],
-              "lr": 0.05, "batch": 32, "max_epochs": 2, "patience": 8,
-              "width": 16},
-    "selection": {"pop_size": 100, "generations": 100, "k": 5,
-                  "ensemble_k": 5},
-    "schedule": {"mode": "sync"},
-    "seed": 0,
-}
+SLICE_EPOCHS = 2     # local training, cut from the paper's 60
 REDUCED = {"train.max_epochs": "60 -> 2 (configs/paper_cnn.py full=True)"}
+ASYNC_PAPER = {  # configuration 8's schedule (examples/async_decentralized)
+    "mode": "async", "speed_lognorm_sigma": 0.6, "link_latency": 0.05,
+    "select_debounce": 0.5,
+    "train_cost": {"name": "affine", "params": {"base": 1.0, "slope": 0.3}}}
+GOSSIP = {"n": 64, "mpc": 2, "capacity": 16, "V": 128, "C": 8,
+          "world_seed": 17, "pop": 24, "gens": 8, "k": 5}  # configuration 9
+GOSSIP_GAP_MAX = 0.02   # bounded-vs-unbounded val-acc (examples/gossip_churn)
+FITNESS_ASYNC_SHAPES = [(32, 100, 100), (64, 24, 16), (64, 24, 128)]
 
 
 class SmokeFailure(RuntimeError):
@@ -269,8 +297,16 @@ def fitness_bound(pop):
 def make_inputs(torch, rng, N, P, M, rows="k5"):
     """Populations whose rows hold k in {0, 1, 5, 5, 5} ones ("k5"),
     about M / 2 ones ("dense") or about M / 16 nonzeros of any value and
-    sign ("values"), accuracies and a symmetric similarity matrix."""
+    sign ("values"), accuracies and a symmetric similarity matrix. "dup"
+    is "k5" with the last N - 20 clients copies of client 0 (population,
+    acc and S), as the engine's power-of-two padding of a batch of 20
+    ready clients makes them."""
     import numpy as np
+    if rows == "dup":
+        pop, acc, S = make_inputs(torch, rng, N, P, M, "k5")
+        pad = list(range(20)) + [0] * (N - 20)
+        return pop[pad].contiguous(), acc[pad].contiguous(), \
+            S[pad].contiguous()
     pop = np.zeros((N, P, M), np.float32)
     for n in range(N):
         for p in range(P):
@@ -342,6 +378,10 @@ def kernel_phase(torch):
         ("batched", 3, 50, 7, "k5"), ("single", 1, 50, 7, "dense"),
         ("batched", 2, 1, 100, "k5"), ("single", 1, 1, 7, "k5"),
         ("batched", 5, 61, 100, "values"), ("single", 1, 45, 320, "values"),
+        # the async paths' shapes (configurations 8 and 9), and a batch
+        # padded by duplicated clients
+        ("batched", 64, 24, 16, "k5"), ("batched", 64, 24, 128, "k5"),
+        ("batched", 32, 100, 100, "dup"),
     ]
     max_err = 0.0
     timings = {}
@@ -367,8 +407,17 @@ def kernel_phase(torch):
               f" {rows} rows: max abs err {err:.3e}")
         check(err <= TOL, f"ensemble_fitness[{entry}] at {(N, P, M)} "
                           f"disagrees with its plain version: {err}")
+        if rows == "dup":   # a padded client scores as its original
+            same = all(torch.equal(g[20:], g[:1].expand_as(g[20:]))
+                       for g in got)
+            print(f"  duplicated clients' objectives equal client 0's "
+                  f"bitwise: {same}")
+            check(same, "ensemble_fitness gives a duplicated client other "
+                        "objectives than its original")
         max_err = max(max_err, err)
-        if M == 100 and P in (100, 200) and rows == "k5":   # main path
+        if rows == "k5" and ((M == 100 and P in (100, 200))
+                             or (N, P, M) in FITNESS_ASYNC_SHAPES):
+            # the paths' shapes
             # in turns: plain, kernel, kernel, plain
             p1, k1, k2, p2 = (time_ms(torch, fn) for fn in
                               (run_plain, run_kernel, run_kernel, run_plain))
@@ -391,6 +440,32 @@ def kernel_phase(torch):
     return max_err, timings
 
 
+def paper_spec(schedule=None):
+    """The paper's configuration from the port's configs/paper_cnn.py
+    (full=True: 20 clients, 5 CNN families at width 16, 60000 synthetic
+    10x10x3 images of 10 classes, Dirichlet 0.1, NSGA-II 100 x 100, k =
+    5), local training cut to SLICE_EPOCHS; `schedule` (a ScheduleSpec
+    dict) replaces the synchronous schedule."""
+    import dataclasses
+
+    from repro_torch.configs.paper_cnn import config
+    from repro_torch.sim import (DataSpec, ExperimentSpec, ScheduleSpec,
+                                 spec_from_fedpae)
+    cfg = config(full=True)
+    fed = dataclasses.replace(cfg["fedpae"], max_epochs=SLICE_EPOCHS)
+    n_classes = cfg["datasets"]["synthetic10"]
+    spec = spec_from_fedpae(fed, n_clients=cfg["n_clients"],
+                            n_classes=n_classes)
+    d = spec.to_dict()
+    d["data"] = dataclasses.asdict(DataSpec(
+        kind="synthetic_images", n_clients=cfg["n_clients"],
+        n_classes=n_classes, n_samples=cfg["n_samples"],
+        alpha=min(cfg["alphas"])))
+    if schedule is not None:
+        d["schedule"] = dataclasses.asdict(ScheduleSpec(**schedule))
+    return ExperimentSpec.from_dict(d)
+
+
 def slice_phase(torch):
     import numpy as np
 
@@ -399,10 +474,10 @@ def slice_phase(torch):
     from repro_torch.core.selection import selection_stats
     from repro_torch.kernels.ensemble_fitness import kernel, ref
     from repro_torch.obs.metrics import Stopwatch
-    from repro_torch.sim import Experiment, ExperimentSpec
+    from repro_torch.sim import Experiment
 
-    spec = ExperimentSpec.from_dict(copy.deepcopy(PAPER_SPEC))
-    print("slice config:", json.dumps({"spec": PAPER_SPEC,
+    spec = paper_spec()
+    print("slice config:", json.dumps({"spec": spec.to_dict(),
                                        "reduced": REDUCED}, allow_nan=False))
     sel = spec.selection
     torch.cuda.reset_peak_memory_stats()
@@ -493,7 +568,7 @@ def slice_phase(torch):
     check(oerr <= TOL, f"final objectives disagree: {oerr}")
     select_determinism(exp.engine)
     profile_select(torch, exp.engine)
-    return launches, n_select
+    return launches, exp, res
 
 
 def _profiled_select(torch, engine):
@@ -555,6 +630,253 @@ def profile_select(torch, engine):
           "fewer (2 x 201 expected)")
     check(min(n_d - n, n_d - n2) >= 201, f"select() saves {n_d - n} and "
           f"{n_d - n2} launches, expected at least 201 (the diag(S) copies)")
+
+
+def stub_schedule(spec):
+    """The port's event loop over `spec`'s schedule and network on the
+    CPU, with a stub selection: the trace that every run of the spec must
+    reproduce, whatever its device (arrivals and select ticks do not
+    depend on what a selection returns)."""
+    from repro_torch.fl.scheduler import AsyncConfig, simulate_async
+    from repro_torch.sim.build import build_network
+    sched = spec.schedule
+    net = build_network(spec, spec.data.n_clients)
+    mpc = (len(spec.train.families) if spec.data.kind == "synthetic_images"
+           else spec.data.models_per_client)
+    cfg = AsyncConfig(
+        n_clients=spec.data.n_clients, models_per_client=mpc,
+        speed_lognorm_sigma=sched.speed_lognorm_sigma,
+        link_latency=sched.link_latency,
+        select_debounce=sched.select_debounce,
+        seed=sched.seed if sched.seed is not None else spec.seed)
+    return simulate_async(cfg, net["neighbors"], net["train_cost"],
+                          on_select_batch=lambda cs, ids, t: {},
+                          transport=net["transport"], gossip=net["gossip"],
+                          churn=net["churn"], repair=net["repair"])
+
+
+def ran_batches(res):
+    """Select ticks at which a GA ran: those where some client recorded
+    a selection (a tick whose clients could not yet fill an ensemble
+    launches nothing)."""
+    return sorted({t for v in res.selections.values() for t, _ in v})
+
+
+def async_report(what, res, wall, launches, per_batch):
+    """Print and check the numbers every async run reports: batches,
+    client selections, launches against per_batch x the batches that ran
+    a GA, wall/net/select seconds, events/s, coverage, t_full, MB on the
+    wire. Returns the number of batches that ran a GA."""
+    ran = ran_batches(res)
+    perf, net = res.perf, res.net or {}
+    expect = ("no kernel on the CPU" if per_batch is None else
+              f"expected {per_batch} x {len(ran)} = {per_batch * len(ran)}")
+    n_batches = len(res.select_batches)
+    sel_s = perf["phases"]["select_s"]
+    mb = net.get("transport", {}).get("bytes_sent", 0) / 1e6
+    print(f"{what}: {n_batches} select batches ({len(ran)} ran a GA), "
+          f"{sum(b for _, b in res.select_batches)} client selections "
+          f"drained, {sum(len(v) for v in res.selections.values())} "
+          f"recorded; {perf['n_events']} events; fitness launches "
+          f"{launches} ({expect})")
+    print(f"{what}: wall {wall:.6f} s (loop {perf['wall_s']} s: net_s "
+          f"{perf['phases']['net_s']}, select_s {sel_s}, "
+          f"{perf['events_per_s']} events/s), select "
+          f"{1e3 * sel_s / max(len(ran), 1):.3f} ms per batch that ran; "
+          f"coverage {res.coverage}, t_full {res.t_full}, "
+          f"{mb:.6f} MB on the wire")
+    check(launches == (0 if per_batch is None else per_batch * len(ran)),
+          f"{what}: ensemble_fitness launched {launches} times ({expect})")
+    check(len(ran) > 0, f"{what}: no select batch ran a GA")
+    return len(ran)
+
+
+def async_paper_phase(torch, sync_exp, sync_res):
+    """Configuration 8: the paper's 20 clients x 5 CNN families on the
+    asynchronous event loop (ideal links), with the sync slice's datasets
+    and trained models injected, observability on."""
+    import numpy as np
+
+    from repro_torch.kernels.ensemble_fitness import kernel
+    from repro_torch.obs.metrics import Stopwatch
+    from repro_torch.sim import Experiment
+
+    spec = paper_spec(ASYNC_PAPER)
+    spec.obs.enabled = True
+    print("async config 8:", json.dumps({
+        "spec": spec.to_dict(), "reduced": REDUCED,
+        "injected": "the sync slice's datasets and trained models"},
+        allow_nan=False))
+    exp = Experiment(spec, datasets=sync_exp.datasets,
+                     models=sync_exp.models, ccfg=sync_exp.ccfg,
+                     device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    kernel.KERNEL.launches = 0
+    sw = Stopwatch().start()
+    res = exp.run()
+    torch.cuda.synchronize()
+    wall = sw.stop()
+    launches = kernel.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    per_batch = 2 * spec.selection.generations + 1
+    n_ran = async_report("async config 8", res, wall, launches,
+                         per_batch)
+    cpu = stub_schedule(spec)
+    same = {f: getattr(res.trace, f) == getattr(cpu, f)
+            for f in ("events", "bench_sizes", "select_batches")}
+    print(f"async config 8: card trace == CPU schedule (stub selection): "
+          f"{same}")
+    check(all(same.values()), f"async config 8: the card's trace departs "
+                              f"from the CPU schedule: {same}")
+    sync_sel = sync_res.perf["select_s"]
+    arrivals = sum(len(b) for b in res.trace.bench_sizes.values())
+    print(f"async config 8: select {res.perf['phases']['select_s']} s over "
+          f"{n_ran} batches ({res.perf['phases']['select_s'] / n_ran:.6f} "
+          f"s each) beside the sync round's one select() {sync_sel:.6f} s; "
+          f"net_s (event loop + {arrivals} per-arrival forwards) "
+          f"{res.perf['phases']['net_s']} s; peak "
+          f"device memory {peak} bytes ({peak / 2**20:.1f} MiB)")
+    check(res.coverage == 1.0, f"async config 8: coverage {res.coverage}")
+    C = spec.data.n_classes
+    acc = res.test_acc
+    print(f"async config 8: fleet-mean test accuracy {float(acc.mean()):.6f}"
+          f" (sync round {float(sync_res.test_acc.mean()):.6f}); metrics "
+          f"{sorted(res.metrics.names())}")
+    check(np.isfinite(acc).all() and acc.mean() > 1.0 / C,
+          f"async config 8: fleet-mean test accuracy {acc.mean()} at or "
+          "below chance")
+    worse = {c: (v[0][1], v[-1][1]) for c, v in res.selections.items()
+             if v and v[-1][1] < v[0][1] - 0.05}
+    print(f"async config 8: clients whose last val-acc fell more than 0.05 "
+          f"below their first: {worse}")
+    check(not worse, f"async config 8: quality degraded over time: {worse}")
+    return {"launches": launches, "batches": len(res.select_batches),
+            "ran": n_ran, "wall_s": wall, "perf": res.perf,
+            "test_acc": float(acc.mean()), "peak": peak}
+
+
+def gossip_spec(capacity, obs):
+    """Configuration 9: examples/gossip_churn.py's make_spec at its full
+    size (64 clients x 2 models on a prediction world, small-world k = 4,
+    lossy gossip with bounded inboxes, lognormal churn, GA 24 x 8)."""
+    from repro_torch.sim import ExperimentSpec
+    g = GOSSIP
+    return ExperimentSpec.from_dict({
+        "data": {"kind": "prediction_world", "n_clients": g["n"],
+                 "n_classes": g["C"], "n_val": g["V"],
+                 "models_per_client": g["mpc"], "seed": g["world_seed"]},
+        "selection": {"pop_size": g["pop"], "generations": g["gens"],
+                      "k": g["k"], "store_capacity": capacity},
+        "network": {
+            "topology": "small_world", "topology_k": 4,
+            "transport": {"name": "gossip", "params": {
+                "base_latency": 0.05, "jitter": 1.0, "bandwidth": 50e6,
+                "drop_prob": 0.1, "inbox_capacity": 64,
+                "sizer": {"name": "prediction_matrix",
+                          "params": {"n_val": g["V"], "n_classes": g["C"]}}}},
+            "gossip": "push",
+            "churn": {"name": "lognormal", "params": {
+                "availability_beta": 0.1, "leave_prob": 0.05}}},
+        "schedule": {"mode": "async", "select_debounce": 0.5,
+                     "train_cost": {"name": "affine",
+                                    "params": {"base": 1.0, "slope": 0.2}}},
+        "obs": obs, "seed": 0})
+
+
+def _final_val_acc(res):
+    import numpy as np
+    return float(np.mean([v[-1][1] for v in res.selections.values() if v]))
+
+
+def _strict_json(path):
+    def no_constant(tok):
+        raise ValueError(f"non-strict JSON token {tok}")
+    with open(path) as f:
+        return json.load(f, parse_constant=no_constant)
+
+
+def gossip_churn_phase(torch):
+    """Configuration 9 on the card at capacity 16 (traced, both sinks)
+    and unbounded, and at capacity 16 on the CPU."""
+    import tempfile
+
+    from repro_torch.core.selection import selection_stats
+    from repro_torch.kernels.ensemble_fitness import kernel
+    from repro_torch.obs.metrics import Stopwatch
+    from repro_torch.sim import Experiment
+
+    g = GOSSIP
+    per_batch = 2 * g["gens"] + 1
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {"metrics_json": str(Path(tmp) / "metrics.json"),
+                 "perfetto": str(Path(tmp) / "trace.json")}
+        traced = {"enabled": True, "trace": True,
+                  "sinks": [{"name": k, "params": {"path": v}}
+                            for k, v in paths.items()]}
+        runs = (("bounded", g["capacity"], "cuda", traced),
+                ("unbounded", g["n"] * g["mpc"], "cuda", {"enabled": True}),
+                ("bounded cpu", g["capacity"], "cpu", {"enabled": True}))
+        for name, cap, device, obs in runs:
+            spec = gossip_spec(cap, obs)
+            if name == "bounded":
+                print("async config 9:", json.dumps(
+                    {"spec": spec.to_dict(), "reduced": {},
+                     "runs": [r[:3] for r in runs]}, allow_nan=False))
+            kernel.KERNEL.launches = 0
+            sw = Stopwatch().start()
+            res = Experiment.from_spec(spec, device=device).run()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = sw.stop()
+            launches = kernel.KERNEL.launches
+            evictions = sum(s.evictions for s in res.stores)
+            what = f"async config 9 {name} (capacity {cap}, {device})"
+            async_report(what, res, wall, launches,
+                         per_batch if device == "cuda" else None)
+            print(f"{what}: final mean val-acc {_final_val_acc(res):.6f}, "
+                  f"evictions {evictions}, net {json.dumps(res.net)}")
+            out[name] = (res, launches, wall)
+        for kind, path in paths.items():
+            doc = _strict_json(path)
+            print(f"async config 9: sink {kind} wrote "
+                  f"{Path(path).stat().st_size} bytes of strict JSON "
+                  f"({len(doc)} top-level keys)")
+    card, cpu = out["bounded"][0], out["bounded cpu"][0]
+    same = {f: getattr(card.trace, f) == getattr(cpu.trace, f)
+            for f in ("events", "net", "bench_sizes", "select_batches")}
+    same["selection keys"] = (
+        {c: [t for t, _ in v] for c, v in card.selections.items()}
+        == {c: [t for t, _ in v] for c, v in cpu.selections.items()})
+    print(f"async config 9: card == CPU at capacity {g['capacity']}: {same}")
+    check(all(same.values()), f"async config 9: card and CPU traces "
+                              f"differ: {same}")
+    gap = _final_val_acc(out["unbounded"][0]) - _final_val_acc(card)
+    print(f"async config 9: bounded-vs-unbounded final mean val-acc gap "
+          f"{gap:+.6f} (limit {GOSSIP_GAP_MAX}); metrics frame names "
+          f"{sorted(card.metrics.names())}")
+    check(gap <= GOSSIP_GAP_MAX, f"async config 9: the bounded store lost "
+                                 f"{gap} val-acc")
+    sb = card.engine.store_batch
+    acc_s, S_s = selection_stats(sb.preds, sb.labels)
+    acc_err = float((acc_s - sb.acc).abs().max())
+    s_err = float((S_s - sb.S).abs().max())
+    batch = [5, 0, 5, g["n"] - 1, 0, 17, 5, 33]
+    gathered = sb.gather(batch)
+    rows_same = all(torch.equal(x, full[batch]) for x, full in zip(
+        gathered, (sb.preds, sb.labels, sb.masks, sb.acc, sb.S)))
+    print(f"async config 9: after the bounded run, cached acc vs "
+          f"selection_stats max abs err {acc_err:.3e}, cached S "
+          f"{s_err:.3e}; gather of {batch} == resident rows bitwise: "
+          f"{rows_same}")
+    check(acc_err == 0.0 and s_err <= TOL_GRAM,
+          f"async config 9: cached statistics disagree: acc {acc_err}, "
+          f"S {s_err}")
+    check(rows_same, "async config 9: gathered rows differ from the "
+                     "resident rows")
+    return {name: {"launches": r[1], "ran": len(ran_batches(r[0])),
+                   "wall_s": r[2], "perf": r[0].perf}
+            for name, r in out.items()}
 
 
 def attention_bound(B, H, KV, Sq, Sk, hd, causal=True, window=0,
@@ -1863,7 +2185,10 @@ def main() -> int:
                 print("  ptxas:", line.strip())
 
     max_err, timings = kernel_phase(torch)
-    launches, n_select = slice_phase(torch)
+    launches, sync_exp, sync_res = slice_phase(torch)
+    paper_async = async_paper_phase(torch, sync_exp, sync_res)
+    del sync_exp, sync_res
+    gossip = gossip_churn_phase(torch)
     torch.cuda.empty_cache()
     flash = flash_phase(torch)[SLICE_SHAPE]
     scans = scan_phase(torch)
@@ -1889,7 +2214,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/ensemble_fitness/kernel.py:109",
         "launches": launches, "max_abs_err": max_err, "ms": k_ms,
         "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}, {
+        "library_ms": None,
+        "launches_by_path": {
+            "sync slice": launches,
+            "async config 8": paper_async["launches"],
+            **{f"async config 9 {k}": v["launches"]
+               for k, v in gossip.items()}},
+        "by_shape": {str(shape): dict(zip(
+            ("ms", "plain_ms", "bound_ms", "bound_by"),
+            timings[("batched",) + shape]))
+            for shape in [(32, 200, 100)] + FITNESS_ASYNC_SHAPES}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",

@@ -3,7 +3,8 @@ per architecture, `get_config(name)` for the full-scale config and
 `get_smoke(name)` for the reduced same-family variant of the CPU tests.
 
 The dense (llama3-8b, qwen2.5-3b, gemma2-27b), ssm (rwkv6-3b) and hybrid
-(zamba2-7b) families are ported. Every other architecture of the
+(zamba2-7b) families are ported, and so is "paper-cnn" (the paper's
+FedPAE scale, `paper_cnn.py`). Every other architecture of the
 reference's list raises NotImplementedError (ROADMAP.md queue 1).
 """
 from __future__ import annotations
@@ -23,7 +24,8 @@ ARCHS = [
     "llama3-8b",
     "paper-cnn",  # the paper's own experimental scale (FedPAE on CNN bench)
 ]
-PORTED = ("llama3-8b", "qwen2.5-3b", "gemma2-27b", "rwkv6-3b", "zamba2-7b")
+PORTED = ("llama3-8b", "qwen2.5-3b", "gemma2-27b", "rwkv6-3b", "zamba2-7b",
+          "paper-cnn")
 
 
 def _mod(name: str):

@@ -63,12 +63,13 @@ class PredictionStore:
         self.labels[:self.n_val] = y_val
         self.mask = np.zeros((capacity,), bool)
         self.entries: List[Optional[BenchEntry]] = [None] * capacity
-        # contribution stats + slot generations (the engine's
-        # cached-chromosome invalidation; for the unbounded store of this
-        # slice generations never change)
+        # contribution stats + slot generations (streaming-store eviction
+        # and the engine's cached-chromosome invalidation — DESIGN.md §6;
+        # for the unbounded store generations simply never change)
         self.hits = np.zeros((capacity,), np.int64)
         self.last_used = np.zeros((capacity,), np.float64)
         self.slot_gen = np.zeros((capacity,), np.int64)
+        self.evictions = 0
         # dirty-slot event log: slot -> id of its latest change. Device
         # mirrors (core/device_store.py) drain it with their OWN cursors,
         # so several consumers can track the same store independently
@@ -99,9 +100,28 @@ class PredictionStore:
         self._materialize(entry.model_id, entry, preds, t)
         return entry.model_id
 
+    def _slot_for(self, model_id: int) -> Optional[int]:
+        """Physical slot of a global model id, None when absent. The
+        unbounded store is identity-mapped; the streaming store overrides
+        with its remap table."""
+        return model_id if 0 <= model_id < self.capacity else None
+
+    def _clear_slot(self, slot: int) -> None:
+        """Empty one slot: zero the row, mask it off, and bump its
+        generation so the engine's cached chromosome detects the stale
+        member and falls back (core/engine.py `_stale`). The dirty mark
+        makes device mirrors zero and mask the resident row too."""
+        self.entries[slot] = None
+        self.mask[slot] = False
+        self.preds[slot] = 0.0
+        self.hits[slot] = 0
+        self.last_used[slot] = 0.0
+        self.slot_gen[slot] += 1
+        self._mark_dirty(slot)
+
     def note_selection(self, selected: np.ndarray, t: float = 0.0):
-        """The engine selected these slots at time t (the contribution
-        signal a bounded store's eviction policy ranks by)."""
+        """The engine selected these slots at time t — the contribution
+        signal the streaming store's eviction policy ranks by."""
         sel = np.asarray(selected, bool)
         self.hits[sel] += 1
         self.last_used[sel] = t
@@ -151,6 +171,79 @@ class PredictionStore:
         for i in loop_slots:
             out[i] = self.entries[i].predict(x)
         return out
+
+
+class StreamingPredictionStore(PredictionStore):
+    """Bounded store for unbounded model churn (DESIGN.md §6).
+
+    Physical capacity is FIXED; global model ids are remapped onto
+    physical slots (`slot_of`), and when the store is full an incoming
+    model evicts the occupant with the lowest contribution score —
+    ranked by (selection hits, last-used time, slot index), i.e. evict
+    the least-selected, then stalest, slot. Local models are pinned
+    (`protect_local`): the negative-transfer fallback must always be
+    servable from the store.
+
+    Slot remapping is what keeps `stack_stores` alignment intact:
+    surviving slots never move, an evicted slot's row is zeroed and
+    masked off (so it drops out of the next stacked batch), and each
+    remap bumps `slot_gen[slot]` so the engine can detect that a cached
+    chromosome points at a slot whose occupant changed underneath it.
+    """
+
+    def __init__(self, client: int, capacity: int, x_val: np.ndarray,
+                 y_val: np.ndarray, n_classes: int,
+                 v_pad: Optional[int] = None, protect_local: bool = True):
+        super().__init__(client, capacity, x_val, y_val, n_classes,
+                         v_pad=v_pad)
+        self.protect_local = protect_local
+        self.slot_of = {}               # global model id -> physical slot
+        self.n_rejected = 0             # adds refused (everything pinned)
+
+    def _slot_for(self, model_id: int) -> Optional[int]:
+        return self.slot_of.get(model_id)
+
+    def _clear_slot(self, slot: int) -> None:
+        gone = self.entries[slot]
+        if gone is not None:
+            self.slot_of.pop(gone.model_id, None)
+        super()._clear_slot(slot)
+
+    def _evictable(self) -> np.ndarray:
+        occ = self.mask.copy()
+        if self.protect_local:
+            occ &= ~self.is_local()
+        return occ
+
+    def _evict_one(self) -> Optional[int]:
+        cand = np.flatnonzero(self._evictable())
+        if len(cand) == 0:
+            return None
+        order = np.lexsort((cand, self.last_used[cand], self.hits[cand]))
+        slot = int(cand[order[0]])
+        self._clear_slot(slot)          # bumps slot_gen: cached
+        self.evictions += 1             # chromosomes invalidate; device
+        return slot                     # mirrors zero the row too
+
+    def add(self, entry: BenchEntry, preds: Optional[np.ndarray] = None,
+            t: float = 0.0):
+        """Admit (or refresh) a model; evicts when full. Returns the
+        physical slot, or None when the add was refused (store full of
+        pinned local models)."""
+        gid = entry.model_id
+        slot = self.slot_of.get(gid)
+        if slot is None:
+            free = np.flatnonzero(~self.mask)
+            if len(free):
+                slot = int(free[0])
+            else:
+                slot = self._evict_one()  # bumps slot_gen
+                if slot is None:
+                    self.n_rejected += 1
+                    return None
+            self.slot_of[gid] = slot
+        self._materialize(slot, entry, preds, t)
+        return slot
 
 
 def stack_stores(stores, clients=None, v_to: Optional[int] = None):

@@ -84,6 +84,22 @@ class MetricsFrame:
         default_factory=dict)
     meta: dict = dataclasses.field(default_factory=dict)
 
+    def names(self) -> set:
+        """Every metric name (label-qualified) the run emitted."""
+        return set(self.scalars) | set(self.series)
+
+    def to_dict(self) -> dict:
+        return {"scalars": json_ready(self.scalars),
+                "series": json_ready(self.series),
+                "meta": json_ready(self.meta)}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "MetricsFrame":
+        return cls(scalars=dict(d.get("scalars") or {}),
+                   series={k: [list(p) for p in v]
+                           for k, v in (d.get("series") or {}).items()},
+                   meta=dict(d.get("meta") or {}))
+
 
 class Metrics:
     """One run's metrics registry. `enabled=False` instances are inert
@@ -187,6 +203,11 @@ class Stopwatch:
     def start(self) -> "Stopwatch":
         self._t0 = time.perf_counter()
         return self
+
+    def peek(self) -> float:
+        """Elapsed seconds of the running lap, read without stopping
+        (0.0 when no lap is running)."""
+        return 0.0 if self._t0 is None else time.perf_counter() - self._t0
 
     def stop(self) -> float:
         dt = time.perf_counter() - self._t0

@@ -1,56 +1,95 @@
 """`Experiment`: the entry point of a FedPAE run (port of
-`repro/sim/experiment.py`, synchronous branch).
+`repro/sim/experiment.py`).
 
-`Experiment.from_spec(spec).run()` builds the world, trains the local
-models, fills the slot-aligned prediction stores, runs ONE batched
-selection over every client and serves each client's test set with its
-selected ensemble. It runs on the CUDA device unless `device="cpu"` is
-passed. Everything outside the synchronous image path (async mode, the
-prediction world, network components, faults, serving, observability,
-bounded stores, the restack selection path) raises NotImplementedError:
-ROADMAP.md queue 1 lists those modules as still to port. Selection
+`Experiment.from_spec(spec).run()` builds the world, stores, engine and
+p2p stack an `ExperimentSpec` describes and dispatches on
+`schedule.mode`:
+
+  sync   — train the local models, fill the slot-aligned stores, run ONE
+           batched selection over every client and serve each client's
+           test set with its selected ensemble (image worlds);
+  async  — the virtual-clock event loop (`fl/scheduler.py`, backend
+           "event"): arrivals incrementally materialize the stores (one
+           forward per arrival in an image world, a shipped matrix in a
+           prediction world), and every debounced select tick runs one
+           batched re-selection of the ready clients over whatever p2p
+           stack (transport, gossip, churn, repair) the spec declares;
+           bounded streaming stores and observability (metrics, trace,
+           sinks) included. Data kinds: synthetic_images, external,
+           prediction_world, none.
+
+It runs on the CUDA device unless `device="cpu"` is passed. Selection
 always scores through the ensemble_fitness wrapper (the CUDA kernel on
-the card), so `selection.use_kernel` is parsed and has no effect.
+the card), so `selection.use_kernel` is parsed and has no effect. Still
+refused with NotImplementedError (ROADMAP.md queue 1): the faults and
+serve sections (item 4), the compiled backend (item 5) and the restack
+selection path (`selection.device_resident=False`). Otherwise `build()`
+raises the reference's errors for the reference's misconfigurations.
+
+Keyword overrides inject pre-built collaborators (the compatibility
+shims' path): anything injected is used as-is, anything absent is built
+from the spec through the component registry.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import math
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from repro_torch.core.bench import BenchEntry
 from repro_torch.core.engine import SelectionEngine
 from repro_torch.device import resolve_device
 from repro_torch.fl.client import accuracy
+from repro_torch.fl.scheduler import AsyncConfig, AsyncTrace, simulate_async
 from repro_torch.obs.metrics import Stopwatch, json_ready
-from repro_torch.sim.build import build_client_datasets
+from repro_torch.obs.probes import attach_metrics, finalize_run, make_obs
+from repro_torch.sim.build import (build_client_datasets, build_network,
+                                   build_prediction_world,
+                                   build_world_stores)
 from repro_torch.sim.compat import fedpae_config
+from repro_torch.sim.registry import build as build_component
 from repro_torch.sim.spec import ExperimentSpec
 
 _IMAGE_KINDS = ("synthetic_images", "external")
 
 
-def _not_ported(what: str) -> NotImplementedError:
+def _not_ported(what: str, item: str = "") -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1); "
-        "this slice runs schedule.mode='sync' on an image world")
+        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1"
+        f"{' item ' + item if item else ''})")
 
 
 @dataclasses.dataclass
 class RunResult:
-    """Structured outcome of one synchronous run, plus handles to the
-    live objects for post-hoc analysis. `perf` holds the wall seconds of
-    each phase (train_s, exchange_s, select_s, serve_s)."""
+    """Structured outcome of one experiment, plus handles to the live
+    objects for post-hoc analysis. Sync `perf` holds the wall seconds of
+    each phase (train_s, exchange_s, select_s, serve_s); async `perf` is
+    the event loop's (wall_s, n_events, events_per_s, phases net_s and
+    select_s), with train_s when the run trained its models."""
     spec: ExperimentSpec
     mode: str
     test_acc: Optional[np.ndarray] = None     # (N,) final-ensemble test acc
-    local_frac: Optional[np.ndarray] = None   # local-member fraction
-    chromosomes: Optional[list] = None        # per-client ensembles
-    member_val_acc: Optional[list] = None     # per-member val acc
+    local_frac: Optional[np.ndarray] = None   # sync: local-member fraction
+    chromosomes: Optional[list] = None        # sync: per-client ensembles
+    member_val_acc: Optional[list] = None     # sync: per-member val acc
+    selections: Optional[dict] = None         # async: c -> [(t, val_acc)]
+    select_batches: Optional[list] = None     # async: (t, batch_size)
+    curve: Optional[list] = None              # async: (bytes_sent, mean acc)
+    coverage: Optional[float] = None          # async: dissemination fraction
+    t_full: Optional[float] = None            # async: time to coverage 1.0
+    net: Optional[dict] = None                # transport/gossip/repair stats
     perf: Optional[dict] = None
+    trace: Optional[AsyncTrace] = None
+    metrics: Optional[object] = None          # obs: collected MetricsFrame
     stores: Optional[list] = None
     engine: Optional[SelectionEngine] = None
     models: Optional[dict] = None
+    transport: Optional[object] = None
+    gossip: Optional[object] = None
+    churn: Optional[object] = None
+    repair: Optional[object] = None
 
     def summary(self) -> dict:
         """Compact strict-JSON report (the `repro_torch.sim.run` output)."""
@@ -62,25 +101,56 @@ class RunResult:
             d["test_acc"] = [round(float(a), 4) for a in self.test_acc]
         if self.local_frac is not None:
             d["local_frac_mean"] = round(float(np.mean(self.local_frac)), 4)
+        if self.selections is not None:
+            d["n_selections"] = int(sum(len(v)
+                                        for v in self.selections.values()))
+        if self.coverage is not None:
+            d["coverage"] = round(float(self.coverage), 4)
+            d["t_full"] = (None if self.t_full is None
+                           or math.isnan(self.t_full)
+                           else round(float(self.t_full), 3))
+        if self.trace is not None:
+            d["n_events"] = len(self.trace.events)
+        if self.net is not None:
+            d["net"] = self.net
         if self.perf is not None:
             d["perf"] = self.perf
+        if self.metrics is not None:
+            d["obs"] = {"n_scalars": len(self.metrics.scalars),
+                        "n_series": len(self.metrics.series)}
         return json_ready(d)
 
 
 class Experiment:
     """Builds and runs the scenario an `ExperimentSpec` describes.
-    `datasets`, `models` (with `ccfg`) may be injected instead of built."""
+    `datasets`, `models` (with `ccfg`), the p2p layers and `train_cost`
+    may be injected instead of built."""
 
     def __init__(self, spec: ExperimentSpec, *, datasets=None,
-                 models=None, ccfg=None, device=None):
+                 models=None, ccfg=None, transport=None, gossip=None,
+                 churn=None, repair=None,
+                 train_cost: Optional[Callable] = None, device=None):
         self.spec = spec
         self.device = resolve_device(device)
         self.datasets = datasets
         self.models = models
         self.ccfg = ccfg
+        self.world = None            # prediction_world: (labels, mats)
         self.stores: Optional[list] = None
         self.engine: Optional[SelectionEngine] = None
+        self.neighbors = None
+        self.transport = transport
+        self.gossip = gossip
+        self.churn = churn
+        self.repair = repair
+        self.train_cost = train_cost
+        self.obs = None              # repro_torch.obs.probes.Obs once built
         self.perf: dict = {}
+        self._runner = None          # the async backend's run(exp)
+        self._sinks: list = []
+        self._injected = {"transport": transport, "gossip": gossip,
+                          "churn": churn, "repair": repair,
+                          "train_cost": train_cost}
         self._built = False
         self._ran = False
         if datasets is not None and len(datasets) != spec.data.n_clients:
@@ -96,30 +166,83 @@ class Experiment:
     def n_classes(self) -> int:
         return self.spec.data.n_classes
 
-    def _check_ported(self) -> None:
+    @property
+    def models_per_client(self) -> int:
+        if self.spec.data.kind in _IMAGE_KINDS:
+            return len(self.spec.train.families)
+        return self.spec.data.models_per_client
+
+    # ---- staged construction ------------------------------------------
+    def _check_spec(self) -> None:
+        """The reference's configuration errors (same words), then the
+        parts of the spec this port refuses by name."""
         spec = self.spec
-        if spec.schedule.mode != "sync":
-            raise _not_ported(f"schedule.mode={spec.schedule.mode!r}")
-        if spec.data.kind not in _IMAGE_KINDS:
-            raise _not_ported(f"data.kind={spec.data.kind!r}")
-        declared = [s for s in ("transport", "gossip", "churn", "repair")
-                    if getattr(spec.network, s) is not None]
-        if declared:
-            raise _not_ported(f"network component(s) {declared}")
-        if spec.faults.enabled:
-            raise _not_ported("the faults section")
-        if spec.serve.enabled:
-            raise _not_ported("the serve section")
-        if spec.obs.enabled or spec.obs.sinks:
-            raise _not_ported("observability (obs.enabled / obs.sinks)")
-        if not spec.selection.device_resident:
-            raise _not_ported("the restack selection path "
-                              "(selection.device_resident=False)")
-        if spec.schedule.backend.name != "event":
+        data = spec.data
+        sync = spec.schedule.mode == "sync"
+        if spec.obs.sinks and not spec.obs.enabled:
+            raise ValueError(
+                "obs.sinks declared but obs.enabled is false — a sink "
+                "with nothing to write is a misconfigured run, not a "
+                "default one")
+        if spec.obs.enabled and spec.obs.trace and (
+                sync or spec.schedule.backend.name != "event"):
+            raise ValueError(
+                "obs.trace=true requires schedule.mode='async' with "
+                "schedule.backend='event': the Perfetto trace records "
+                "per-event slices, which the "
+                f"{'sync driver' if sync else 'compiled array world'} "
+                "does not produce")
+        if sync and spec.faults.enabled:
+            raise ValueError(
+                'schedule.mode="sync" cannot honor the faults section: '
+                "fault injection (and validation-gated admission) drives "
+                "the asynchronous event loop — switch to "
+                'schedule.mode="async" or drop spec.faults')
+        if sync and spec.serve.enabled:
+            raise ValueError(
+                'schedule.mode="sync" cannot honor the serve section: '
+                "query traffic interleaves with the asynchronous event "
+                'loop — switch to schedule.mode="async" or drop '
+                "spec.serve")
+        if sync and data.kind not in _IMAGE_KINDS:
+            raise ValueError(
+                f'schedule.mode="sync" needs image datasets '
+                f'(data.kind in {_IMAGE_KINDS}), got {data.kind!r}')
+        if sync and spec.schedule.backend.name != "event":
             raise ValueError(
                 f'schedule.mode="sync" runs no simulation loop — '
                 f"schedule.backend={spec.schedule.backend.name!r} only "
                 'applies to schedule.mode="async"')
+        if sync:
+            declared = [s for s in ("transport", "gossip", "churn",
+                                    "repair")
+                        if getattr(spec.network, s) is not None]
+            injected = [s for s, v in self._injected.items()
+                        if v is not None]
+            if declared or injected:
+                what = (f"spec component(s) {declared}" if declared
+                        else "") + (" and " if declared and injected
+                                    else "") + \
+                       (f"injected collaborator(s) {injected}"
+                        if injected else "")
+                raise ValueError(
+                    f'schedule.mode="sync" cannot honor {what}: the '
+                    "synchronous protocol has no exchange simulation — "
+                    'switch to schedule.mode="async" or drop them '
+                    "(silently ignoring them would report a lossless "
+                    "run as if the declared network had been simulated)")
+        if spec.faults.enabled:
+            raise _not_ported("the faults section", "4")
+        if spec.serve.enabled:
+            raise _not_ported("the serve section", "4")
+        if not spec.selection.device_resident:
+            raise _not_ported("the restack selection path "
+                              "(selection.device_resident=False)")
+        if not sync:  # the compiled backend's builder raises here
+            self._runner = build_component(
+                "backend", spec.schedule.backend,
+                {"spec": spec, "seed": spec.seed,
+                 "n_clients": data.n_clients})
 
     def _ensure_world(self) -> None:
         data = self.spec.data
@@ -128,10 +251,14 @@ class Experiment:
         elif data.kind == "external" and self.datasets is None:
             raise ValueError('data.kind="external" requires datasets to be '
                              "injected (Experiment(spec, datasets=...))")
+        elif data.kind == "prediction_world" and self.world is None:
+            self.world = build_prediction_world(data, self.spec.seed)
 
     def _ensure_models(self) -> None:
+        """Local training (image worlds only)."""
         from repro_torch.core.fedpae import train_all_clients
-        if self.models is not None:
+        if self.spec.data.kind not in _IMAGE_KINDS or \
+                self.models is not None:
             return
         self._ensure_world()
         sw = Stopwatch().start()
@@ -141,39 +268,83 @@ class Experiment:
         self.perf["train_s"] = sw.stop()
 
     def build(self) -> "Experiment":
-        """Materialize the world, trained models, filled stores and the
-        engine. Idempotent."""
-        from repro_torch.core.fedpae import build_stores
+        """Materialize everything the run needs: world, trained models,
+        stores (filled for sync, empty for async), engine, and — async —
+        the registry-built p2p stack. Idempotent."""
+        from repro_torch.core.fedpae import _empty_stores, build_stores
         if self._built:
             return self
-        self._check_ported()
-        spec, sel = self.spec, self.spec.selection
+        spec = self.spec
+        data, sel = spec.data, spec.selection
         self._ensure_world()
-        self._ensure_models()
-        sw = Stopwatch().start()
-        self.stores = build_stores(self.datasets, self.models, self.ccfg,
-                                   fedpae_config(spec))
-        self.perf["exchange_s"] = sw.stop()
-        if sel.enabled:
+        self._check_spec()
+        sync = spec.schedule.mode == "sync"
+        self.obs = make_obs(spec.obs)
+        if data.kind in _IMAGE_KINDS:
+            self._ensure_models()
+            cfg = fedpae_config(spec)
+            if sync:
+                sw = Stopwatch().start()
+                self.stores = build_stores(self.datasets, self.models,
+                                           self.ccfg, cfg)
+                self.perf["exchange_s"] = sw.stop()
+            else:
+                self.stores = _empty_stores(self.datasets, cfg,
+                                            self.n_classes)
+        elif data.kind == "prediction_world":
+            labels, _ = self.world
+            self.stores = build_world_stores(data, labels,
+                                             sel.store_capacity)
+        if self.stores is not None and sel.enabled:
             self.engine = SelectionEngine(
                 self.stores, sel.nsga(spec.seed),
                 seed=sel.seed if sel.seed is not None else spec.seed,
                 ensemble_k=(sel.ensemble_k if sel.ensemble_k is not None
                             else sel.k),
-                device=self.device)
+                metrics=self.obs.metrics if self.obs is not None
+                else None, device=self.device)
+        if not sync:
+            n_val = (max(len(d.y_va) for d in self.datasets)
+                     if self.datasets else None)
+            # injected collaborators participate in the build context,
+            # so spec-built dependents (repair around gossip, gossip
+            # around churn) wire against the instances that actually run
+            net = build_network(spec, data.n_clients, n_val=n_val,
+                                injected=self._injected)
+            self.neighbors = net["neighbors"]
+            for slot in ("transport", "gossip", "churn", "repair",
+                         "train_cost"):
+                setattr(self, slot, net[slot])
+        if self.obs is not None:
+            attach_metrics(self.obs.metrics, self.transport, self.gossip,
+                           self.repair)
+        if spec.obs.sinks:
+            ctx = {"obs": self.obs, "spec": spec,
+                   "n_clients": data.n_clients}
+            self._sinks = [build_component("sink", s, ctx)
+                           for s in spec.obs.sinks]
         self._built = True
         return self
 
+    # ---- drivers -------------------------------------------------------
     def run(self) -> RunResult:
-        """Single-shot: the stores' dirty logs and selection state are
-        consumed, so re-running needs a fresh Experiment."""
+        """Single-shot: stores, gossip version vectors and transport
+        counters are consumed by the drive, so re-running needs a fresh
+        Experiment."""
         if self._ran:
             raise RuntimeError(
-                "this Experiment already ran — build a fresh one with "
+                "this Experiment already ran; its stores and p2p state "
+                "are consumed — build a fresh one with "
                 "Experiment.from_spec(spec) to re-run")
         self.build()
         self._ran = True
-        return self._run_sync()
+        res = (self._run_sync() if self.spec.schedule.mode == "sync"
+               else self._runner(self))
+        if self.obs is not None:
+            finalize_run(self.obs, res)
+        for sink in self._sinks:
+            sink(res)
+        return res
 
     def _run_sync(self) -> RunResult:
         """The paper's synchronous protocol: stores complete, ONE batched
@@ -204,6 +375,93 @@ class Experiment:
             local_frac=np.array(local_fracs), chromosomes=chroms,
             member_val_acc=member_accs, perf=dict(self.perf),
             stores=stores, engine=engine, models=self.models)
+
+    def _on_add(self) -> Optional[Callable]:
+        """The arrival hook that materializes a model into a client's
+        store: one forward on the client's validation set (image
+        worlds), or the world's shipped matrix (prediction world)."""
+        data, stores = self.spec.data, self.stores
+        mpc = self.models_per_client
+        if data.kind in _IMAGE_KINDS:
+            from repro_torch.core.fedpae import _make_entry
+            families = self.spec.train.families
+            models, ccfg, F = self.models, self.ccfg, len(families)
+
+            def on_add(c, model_key, t):
+                owner, m = model_key
+                stores[c].add(_make_entry(owner, families[m], m, models,
+                                          ccfg, F), t=t)
+            return on_add
+        if data.kind == "prediction_world":
+            _, mats = self.world
+            C = data.n_classes
+
+            def on_add(c, model_key, t):
+                owner, m = model_key
+                gid = owner * mpc + m
+                stores[c].add(
+                    BenchEntry(model_id=gid, owner=owner, family=f"f{m}",
+                               predict=lambda x: np.full(
+                                   (len(x), C), 1.0 / C, np.float32)),
+                    preds=mats[(c, gid)], t=t)
+            return on_add
+        return None
+
+    def _run_async_event(self) -> RunResult:
+        """The event-granular asynchronous driver: virtual-clock
+        simulation where arrivals incrementally materialize the stores
+        and debounced select events run batched re-selection through the
+        shared engine, over whatever p2p stack the spec declares."""
+        spec = self.spec
+        data, sched = spec.data, spec.schedule
+        n, mpc = data.n_clients, self.models_per_client
+        stores, engine = self.stores, self.engine
+        acfg = AsyncConfig(
+            n_clients=n, models_per_client=mpc,
+            speed_lognorm_sigma=sched.speed_lognorm_sigma,
+            link_latency=sched.link_latency,
+            select_debounce=sched.select_debounce,
+            seed=sched.seed if sched.seed is not None else spec.seed)
+
+        curve: List[tuple] = []
+        latest: Dict[int, float] = {}
+        on_select_batch = None
+        if engine is not None and sched.select_during_run:
+            def on_select_batch(clients, bench_ids, t):
+                fresh = engine.select(clients, t=t)
+                out = {c: float(r["val_accuracy"])
+                       for c, r in fresh.items()}
+                latest.update(out)
+                if self.transport is not None and latest:
+                    curve.append((self.transport.stats.bytes_sent,
+                                  float(np.mean(list(latest.values())))))
+                return out
+
+        trace = simulate_async(
+            acfg, self.neighbors, train_cost=self.train_cost,
+            on_add=self._on_add(), on_select_batch=on_select_batch,
+            transport=self.transport, gossip=self.gossip,
+            churn=self.churn, repair=self.repair, obs=self.obs)
+
+        finals = [s[-1][1] if s else 0
+                  for s in trace.bench_sizes.values()]
+        coverage = sum(finals) / (n * n * mpc)
+        t_full = (max(s[-1][0] for s in trace.bench_sizes.values())
+                  if coverage == 1.0 else float("nan"))
+        test_acc = None
+        if data.kind in _IMAGE_KINDS and engine is not None:
+            test_acc = np.array([accuracy(engine.serve(c, d.x_te)[0],
+                                          d.y_te)
+                                 for c, d in enumerate(self.datasets)])
+        return RunResult(
+            spec=spec, mode="async", test_acc=test_acc,
+            selections=trace.selections,
+            select_batches=trace.select_batches, curve=curve or None,
+            coverage=coverage, t_full=t_full, net=trace.net,
+            perf={**self.perf, **trace.perf}, trace=trace,
+            stores=stores, engine=engine, models=self.models,
+            transport=self.transport, gossip=self.gossip,
+            churn=self.churn, repair=self.repair)
 
     def local_ensemble(self) -> np.ndarray:
         """The paper's 'local' baseline on this experiment's world and

@@ -1,7 +1,8 @@
 """Run a serialized ExperimentSpec end-to-end from the command line with
-the PyTorch port (port of `repro/sim/run.py`, synchronous specs):
+the PyTorch port (port of `repro/sim/run.py`):
 
-    PYTHONPATH=src python -m repro_torch.sim.run --spec exp.json [--device cpu]
+    PYTHONPATH=src python -m repro_torch.sim.run --spec exp.json \
+        [--device cpu] [--metrics-out m.json] [--trace-out trace.json]
 
 The JSON file holds one spec dict (see `ExperimentSpec.to_dict`), plus
 an optional top-level ``"smoke_overrides"`` section — a flat mapping of
@@ -58,6 +59,13 @@ def main(argv=None) -> int:
                          "data.n_clients=16 (repeatable)")
     ap.add_argument("--json-out", default=None, metavar="PATH",
                     help="also write the summary JSON to a file")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="enable observability and write the run's "
+                         "metrics frame (strict JSON) to this path")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable observability + event tracing and "
+                         "write a Chrome/Perfetto trace-event JSON to "
+                         "this path (async event backend only)")
     ap.add_argument("--device", default=None,
                     help="torch device to run on (default: cuda)")
     args = ap.parse_args(argv)
@@ -91,8 +99,23 @@ def main(argv=None) -> int:
             pass  # bare strings stay strings
         apply_override(raw, path, value)
 
-    # spec errors and paths not ported yet surface from build() before
-    # any training starts
+    if args.metrics_out or args.trace_out:
+        # the CLI flags are sugar over ObsSpec: enable obs and append
+        # the matching sinks on top of whatever the file declares
+        apply_override(raw, "obs.enabled", True)
+        obs = raw.setdefault("obs", {})
+        sinks = list(obs.get("sinks") or [])
+        if args.metrics_out:
+            sinks.append({"name": "metrics_json",
+                          "params": {"path": args.metrics_out}})
+        if args.trace_out:
+            apply_override(raw, "obs.trace", True)
+            sinks.append({"name": "perfetto",
+                          "params": {"path": args.trace_out}})
+        obs["sinks"] = sinks
+
+    # spec errors, component params and paths not ported yet surface
+    # from build() before any training starts
     try:
         spec = ExperimentSpec.from_dict(raw)
         exp = Experiment.from_spec(spec, device=args.device).build()

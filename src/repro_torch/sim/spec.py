@@ -2,8 +2,8 @@
 (port of `repro/sim/spec.py`).
 
 Every section parses and round-trips exactly as in the reference, so one
-spec file drives either package; `repro_torch.sim.Experiment` runs the
-synchronous image path and rejects the rest by name (ROADMAP.md queue 1).
+spec file drives either package; `repro_torch.sim.Experiment` rejects by
+name what is not ported yet (ROADMAP.md queue 1).
 
 `ExperimentSpec` is the single entry point's input (DESIGN.md §9): a
 nested, dict/JSON-round-trippable, seed-complete description of a FedPAE
@@ -20,8 +20,9 @@ scenario. Five sections mirror the five things a run needs:
                    switches, bounded store capacity.
   NetworkSpec    — topology plus four TAGGED component slots (transport,
                    gossip, churn, repair), each a `ComponentSpec` resolved
-                   by name through the component registry (in the
-                   reference, `repro/sim/registry.py`; not ported yet).
+                   by name through `repro_torch.sim.registry` so new
+                   transports and protocols plug in without touching
+                   the driver.
   ScheduleSpec   — sync vs async, debounce, speeds, and the train-cost
                    model (itself a tagged component).
   ObsSpec        — observability (DESIGN.md §11): the metrics registry,
@@ -79,11 +80,10 @@ def _jsonify(v):
 
 @dataclasses.dataclass
 class ComponentSpec:
-    """A tagged component config: `name` picks the builder out of the
-    component registry (not ported yet), `params` is its keyword
-    payload. Accepts the shorthand forms ``"push"`` (bare name) and
-    ``{"name": .., "params": ..}`` wherever a spec field expects a
-    component."""
+    """A tagged component config: `name` picks the builder out of
+    `repro_torch.sim.registry`, `params` is its keyword payload. Accepts
+    the shorthand forms ``"push"`` (bare name) and ``{"name": ..,
+    "params": ..}`` wherever a spec field expects a component."""
     name: str
     params: dict = dataclasses.field(default_factory=dict)
 

@@ -1,8 +1,10 @@
 """The port stands alone: importing every `repro_torch` module, running
-a tiny synchronous slice, a tiny ensemble `serve_batch` of each ported
-model family (dense llama3-8b, ssm rwkv6-3b, hybrid zamba2-7b) and two
-training steps of smoke qwen2.5-3b and rwkv6-3b with a checkpoint on the
-CPU loads neither JAX nor any module of the reference package `repro`."""
+a tiny synchronous slice, a tiny asynchronous run (lossy gossip, churn,
+repair, bounded stores, observability), a tiny ensemble `serve_batch` of
+each ported model family (dense llama3-8b, ssm rwkv6-3b, hybrid
+zamba2-7b) and two training steps of smoke qwen2.5-3b and rwkv6-3b with
+a checkpoint on the CPU loads neither JAX nor any module of the
+reference package `repro`."""
 import os
 import subprocess
 import sys
@@ -27,6 +29,17 @@ spec = ExperimentSpec.from_dict({
                   "use_kernel": True}})
 res = Experiment.from_spec(spec, device="cpu").run()
 assert res.test_acc.shape == (2,)
+spec = ExperimentSpec.from_dict({
+    "data": {"kind": "prediction_world", "n_clients": 6, "n_val": 16},
+    "selection": {"pop_size": 8, "generations": 2, "k": 2,
+                  "store_capacity": 5},
+    "network": {"topology": "ring", "transport": {"name": "gossip",
+                "params": {"drop_prob": 0.2}}, "gossip": "push",
+                "churn": "lognormal", "repair": "anti_entropy"},
+    "schedule": {"mode": "async"}, "obs": {"enabled": True,
+                                           "trace": True}})
+res = Experiment.from_spec(spec, device="cpu").run()
+assert res.coverage > 0 and res.metrics.names()
 import torch
 from repro_torch.configs import get_smoke
 from repro_torch.launch.serve import serve_batch
