@@ -23,6 +23,12 @@
    bound (pop read whole, the entries of acc and S its rows' nonzeros
    pick, the (N, P, 2) objectives written; the count with S whole is
    printed beside it).
+3b. Repeatable local training: each CNN family's local training loop,
+   64 steps on client 0's data of the slice, run in turns with the
+   flags the process has and under fl.client.repeatable_cudnn (cuDNN's
+   deterministic algorithms), twice each: prints the first step and
+   parameter at which the two unscoped runs' gradients differ and the ms
+   a step of each; the two scoped runs must agree at every step.
 4. Slice: the paper's synchronous configuration (the port's
    configs/paper_cnn.py, full=True: 20 clients, 5 CNN families, width
    16, 10 classes, 60000 synthetic 10x10x3 images, Dirichlet 0.1,
@@ -36,7 +42,10 @@
    dense-form kernel's run on this card counted, and beside those of the
    same selection through that version's per-call fitness wrapper (a
    diag(S) copy, two outputs, a stack), which must launch at least 201
-   more.
+   more. Then the slice runs a second time from the same spec: its
+   fleet-mean test accuracy, the digests of the selected chromosomes and
+   of every trained parameter must equal the first call's bits (both
+   printed, with both calls' train_s).
 4b. Async, configuration 8: the same configuration on the asynchronous
    event loop (speed sigma 0.6, link latency 0.05, train cost affine(1.0,
    0.3), select_debounce 0.5, ideal links, observability on) with the
@@ -50,6 +59,17 @@
    no client's last validation accuracy more than 0.05 below its first.
    Prints batches, client selections, wall, net_s and select_s (ms a
    batch beside the sync round's select), t_full and peak memory.
+4b'. Async, configuration 12: configuration 8 serving queries once its
+   models have spread (Poisson, 20 queries/s a client in batches of 8
+   from t = 18 for 15 s; a label shift to class 7 on half the clients at
+   t = 23 and a covariate shift of severity 0.5 on half at t = 27;
+   monitor window 64, threshold 0.12, debounce 0.5; policy "ensemble"). Every query batch must be answered
+   by a masked forward of at most k selected members (the models are on
+   the card); the queries served and dropped must add up to those a
+   stub-selection schedule with the monitor off offers; fitness launches
+   201 x the batches that ran a GA; at least one re-selection the
+   monitor asked for. Prints the serve counters (regret, latency p50 and
+   p99, window accuracy), net_s against select_s and peak memory.
 4c. Async, configuration 9: examples/gossip_churn.py at its full size
    (prediction world of 64 clients x 2 models, V = 128, C = 8, world
    seed 17; small-world k = 4; lossy gossip with inboxes of 64, push,
@@ -63,6 +83,23 @@
    selection_stats exactly and S within 2e-4, and a gather of a batch
    with repeated clients must equal the resident rows bitwise. Prints MB
    on the wire, coverage, net_s / select_s, events/s and the metrics.
+4d. Async, configuration 10: examples/specs/byzantine_ring.json at its
+   full size (byzantine, corruption, crash-restart, the validation gate)
+   on the card and on the CPU: events, net (faults and admission
+   included), bench sizes and select batches equal; no honest store
+   holds a byzantine owner's payload; fitness launches 17 x the batches
+   that ran a GA.
+4e. Async, configuration 11: examples/specs/serve_drift.json at its full
+   size on the card with the monitor on and off, and on the CPU with it
+   off: the monitor-off runs give equal events, bench sizes, select
+   batches and net (the window accuracy, which depends on what each
+   GA picked, printed beside); with the monitor on, the same queries,
+   one drift, at least one re-selection, and every select tick only the
+   monitor made ran a GA; launches 17 x the batches that ran.
+4f. Kernel: ensemble_fitness at every (N, P, M) shape configurations
+   10-12 launched (recorded from their runs), held against its plain
+   version; at each configuration's widest batches timed against it
+   with its bound.
 5. Kernel: flash_attention at the reference's test shapes and variants,
    head dim 112, bf16 window and softcap at hd 64, 112 and 128, a ragged
    S = 100, the serving slice's shape (4, 32, 8, 2048, 2048, 128),
@@ -186,8 +223,9 @@
 12. Every share of bound printed (bound / time) must be <= 1.05: a
    kernel faster than its bound means the bound is no floor. The shares,
    the `kernels` JSON line (ensemble_fitness's `launches` is the sync
-   slice's count; `launches_by_path` adds each async run's, `by_shape`
-   the timings at every path's shape), then the result line.
+   slice's count; `launches_by_path` adds each async run's, those of
+   configurations 10-12 included, `by_shape` the timings at every
+   path's shape), then the result line.
 
 Exits non-zero at the first failure, and when no CUDA device is present.
 TF32 is off for cuBLAS and cuDNN throughout, so every fp32 product is a
@@ -195,7 +233,9 @@ full fp32 product.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import hashlib
 import json
 import math
 import subprocess
@@ -239,6 +279,25 @@ GOSSIP = {"n": 64, "mpc": 2, "capacity": 16, "V": 128, "C": 8,
           "world_seed": 17, "pop": 24, "gens": 8, "k": 5}  # configuration 9
 GOSSIP_GAP_MAX = 0.02   # bounded-vs-unbounded val-acc (examples/gossip_churn)
 FITNESS_ASYNC_SHAPES = [(32, 100, 100), (64, 24, 16), (64, 24, 128)]
+PROBE_STEPS = 64      # local-training steps compared a family
+CHAOS = {  # configurations 10 and 11: the repo's spec files, full size
+    "faults": "examples/specs/byzantine_ring.json",
+    "serve": "examples/specs/serve_drift.json"}
+# configuration 12: configuration 8 serving queries once its models have
+# spread (its last arrival lands at t_full = 17.59): until then every
+# client re-selects on arrivals about every 0.7 s, and each re-selection
+# restarts the monitor's 64-query window (3.2 s of this traffic), so a
+# drift during dissemination cannot breach it
+SERVE_PAPER = {
+    "traffic": {"name": "poisson", "params": {
+        "rate": 20.0, "batch": 8, "start": 18.0, "duration": 15.0}},
+    "drift": [
+        {"name": "label_shift", "params": {
+            "at": 23.0, "classes": [7], "skew": 1.0, "fraction": 0.5}},
+        {"name": "covariate_shift", "params": {
+            "at": 27.0, "severity": 0.5, "fraction": 0.5}}],
+    "policy": "ensemble", "monitor": True, "window": 64,
+    "threshold": 0.12, "debounce": 0.5}
 
 
 class SmokeFailure(RuntimeError):
@@ -632,11 +691,49 @@ def profile_select(torch, engine):
           f"{n_d - n2} launches, expected at least 201 (the diag(S) copies)")
 
 
-def stub_schedule(spec):
+class StubServing:
+    """The serve section's query and drift events with nothing answered
+    and no monitor: counts the queries the schedule offers (served or
+    dropped)."""
+
+    def __init__(self, spec):
+        from repro_torch.sim.build import _seeded
+        from repro_torch.sim.registry import build as build_component
+        sv = spec.serve
+        base = sv.seed if sv.seed is not None else spec.seed
+        ctx = {"n_clients": spec.data.n_clients, "seed": base,
+               "spec": spec}
+        self.traffic = build_component("traffic",
+                                       _seeded(sv.traffic, base), ctx)
+        self.drifts = [build_component("drift", _seeded(d, base), ctx)
+                       for d in sv.drift]
+        self.n_clients = spec.data.n_clients
+        self.offered = 0
+
+    def initial_events(self):
+        from repro_torch.serve import ServingEngine
+        return ServingEngine.initial_events(self)
+
+    def on_query(self, c, t, batch_idx, n):
+        self.offered += n
+        return False
+
+    def note_dropped(self, c, n):
+        self.offered += n
+
+    def on_drift(self, di, t):
+        pass
+
+    def note_selected(self, clients, t):
+        pass
+
+
+def stub_schedule(spec, serving=None):
     """The port's event loop over `spec`'s schedule and network on the
-    CPU, with a stub selection: the trace that every run of the spec must
-    reproduce, whatever its device (arrivals and select ticks do not
-    depend on what a selection returns)."""
+    CPU, with a stub selection (and, given a `StubServing`, its query and
+    drift events): the trace that every run of the spec must reproduce,
+    whatever its device (arrivals and select ticks do not depend on what
+    a selection returns; without a monitor, neither do queries)."""
     from repro_torch.fl.scheduler import AsyncConfig, simulate_async
     from repro_torch.sim.build import build_network
     sched = spec.schedule
@@ -652,7 +749,8 @@ def stub_schedule(spec):
     return simulate_async(cfg, net["neighbors"], net["train_cost"],
                           on_select_batch=lambda cs, ids, t: {},
                           transport=net["transport"], gossip=net["gossip"],
-                          churn=net["churn"], repair=net["repair"])
+                          churn=net["churn"], repair=net["repair"],
+                          serving=serving)
 
 
 def ran_batches(res):
@@ -877,6 +975,405 @@ def gossip_churn_phase(torch):
     return {name: {"launches": r[1], "ran": len(ran_batches(r[0])),
                    "wall_s": r[2], "perf": r[0].perf}
             for name, r in out.items()}
+
+
+# ---- local training on the card, repeatable -----------------------------
+
+
+def _probe_run(torch, family, fi, cfg, data, lr, batch, scoped):
+    """PROBE_STEPS steps of local training's loop (train_local_model's
+    model, optimizer and minibatches), under repeatable_cudnn or under
+    the flags the process had. Returns (parameter names, every step's
+    gradients, ms a step)."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.fl.client import repeatable_cudnn
+    from repro_torch.models.cnn import init_model
+    from repro_torch.obs.metrics import Stopwatch
+    from repro_torch.optim import make_optimizer
+    model = init_model(family, fi, cfg).to("cuda")
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    opt = make_optimizer("momentum")
+    state = opt.init(params)
+    x = torch.as_tensor(data.x_tr, device="cuda")
+    y = torch.as_tensor(data.y_tr, dtype=torch.int64, device="cuda")
+    idx = torch.as_tensor(np.random.default_rng(fi).integers(
+        0, len(x), (PROBE_STEPS, batch)), device="cuda")
+    grads = []
+    torch.cuda.synchronize()
+    sw = Stopwatch().start()
+    with repeatable_cudnn() if scoped else contextlib.nullcontext():
+        for step in range(PROBE_STEPS):
+            loss = F.cross_entropy(model(x[idx[step]]), y[idx[step]])
+            g = torch.autograd.grad(loss, params)
+            grads.append([t.clone() for t in g])
+            opt.update(g, state, params, lr)
+    torch.cuda.synchronize()
+    return names, grads, 1e3 * sw.stop() / PROBE_STEPS
+
+
+def _first_difference(torch, a, b, names):
+    """(step, parameter) of the first gradient that differs, or None."""
+    for step, (ga, gb) in enumerate(zip(a, b)):
+        for name, x, y in zip(names, ga, gb):
+            if not torch.equal(x, y):
+                return step, name
+    return None
+
+
+def training_determinism_phase(torch):
+    """Each family's local training, PROBE_STEPS steps on client 0's data
+    of the sync slice, run four times in turns after a warm-up run: with
+    the flags the process has (local training's before the scope existed),
+    under repeatable_cudnn twice, and with the process's flags again.
+    Prints the first step and parameter whose gradient differs between
+    the two unscoped runs, and the ms a step of each; the two scoped runs
+    must give the same gradients at every step."""
+    from repro_torch.models.cnn import CNNConfig
+    from repro_torch.sim.build import build_client_datasets
+    spec = paper_spec()
+    tr = spec.train
+    data = build_client_datasets(spec.data, spec.seed)[0]
+    cfg = CNNConfig(n_classes=spec.data.n_classes, width=tr.width,
+                    in_channels=data.x_tr.shape[-1])
+    cudnn = torch.backends.cudnn
+    print(f"training determinism: cudnn.deterministic "
+          f"{cudnn.deterministic}, cudnn.benchmark {cudnn.benchmark} "
+          f"outside the scope; {PROBE_STEPS} steps of batch {tr.batch} a "
+          f"run, client 0 ({len(data.x_tr)} training images)")
+    out = {}
+    for fi, fam in enumerate(tr.families):
+        runs = [_probe_run(torch, fam, fi, cfg, data, tr.lr, tr.batch,
+                           scoped)   # the first one warms up, untimed
+                for scoped in (False, False, True, True, False)][1:]
+        names = runs[0][0]
+        free = _first_difference(torch, runs[0][1], runs[3][1], names)
+        scoped = _first_difference(torch, runs[1][1], runs[2][1], names)
+        ms_free = (runs[0][2] + runs[3][2]) / 2
+        ms_scoped = (runs[1][2] + runs[2][2]) / 2
+        at = ("no step" if free is None
+              else "step %d, gradient of %s" % free)
+        held = ("equal at every step" if scoped is None
+                else "differ at step %d, %s" % scoped)
+        print(f"training determinism {fam}: unscoped runs first differ at "
+              f"{at}; scoped runs {held}"
+              f"; ms a step unscoped {ms_free:.6f} ({runs[0][2]:.6f}, "
+              f"{runs[3][2]:.6f}), scoped {ms_scoped:.6f} "
+              f"({runs[1][2]:.6f}, {runs[2][2]:.6f})")
+        check(scoped is None, f"training determinism {fam}: two runs "
+                              f"under repeatable_cudnn differ at {scoped}")
+        out[fam] = {"first_difference_unscoped": free,
+                    "ms_step": (ms_free, ms_scoped)}
+    return out
+
+
+def _digests(res):
+    """sha256 (first 16 hex digits) of the selected chromosomes' bytes
+    and of every trained parameter's bytes, in client and family order."""
+    import numpy as np
+    chrom = hashlib.sha256(np.stack(res.chromosomes).tobytes()).hexdigest()
+    params = hashlib.sha256()
+    for key in sorted(res.models):
+        for p in res.models[key][0].parameters():
+            params.update(p.detach().cpu().numpy().tobytes())
+    return chrom[:16], params.hexdigest()[:16]
+
+
+def sync_repeat_phase(torch, first):
+    """The sync slice a second time in this process, from the same spec:
+    the fleet-mean test accuracy, the chromosomes and the trained
+    parameters must be the first call's bits."""
+    from repro_torch.sim import Experiment
+    res = Experiment.from_spec(paper_spec(), device="cuda").run()
+    torch.cuda.synchronize()
+    a, b = float(first.test_acc.mean()), float(res.test_acc.mean())
+    d1, d2 = _digests(first), _digests(res)
+    print(f"sync slice, two calls: fleet-mean test accuracy {a!r} and "
+          f"{b!r} (bit-equal: {a == b}); chromosome digests {d1[0]} and "
+          f"{d2[0]}; trained-parameter digests {d1[1]} and {d2[1]}; "
+          f"train_s {first.perf['train_s']:.6f} and "
+          f"{res.perf['train_s']:.6f}")
+    check(a == b and d1 == d2, "the sync slice is not repeatable on the "
+                               "card: two calls from one seed differ")
+    return {"test_acc": (a, b), "digests": (d1, d2),
+            "train_s": (first.perf["train_s"], res.perf["train_s"])}
+
+
+# ---- configurations 10-12: faults, admission, serving --------------------
+
+
+@contextlib.contextmanager
+def recorded_fitness_shapes(shapes):
+    """Adds to `shapes` the (N, P, M) of every population the selection
+    scores while the scope is open (the kernel's shapes on that path)."""
+    from repro_torch.core import selection
+    inner = selection._eval_fn
+
+    def eval_fn(acc, S):
+        fn = inner(acc, S)
+
+        def recorded(pop):
+            shapes.add(tuple(pop.shape))
+            return fn(pop)
+        return recorded
+    selection._eval_fn = eval_fn
+    try:
+        yield shapes
+    finally:
+        selection._eval_fn = inner
+
+
+def chaos_spec(name, **serve):
+    """Configuration 10's or 11's spec file at its full size (its
+    smoke_overrides dropped), `serve` replacing keys of its serve
+    section."""
+    from repro_torch.sim import ExperimentSpec
+    with open(ROOT / CHAOS[name]) as f:
+        d = json.load(f)
+    d.pop("smoke_overrides", None)
+    d.get("serve", {}).update(serve)
+    return ExperimentSpec.from_dict(d)
+
+
+def _timed_run(torch, exp, device, shapes=None):
+    """(result, wall s, fitness launches) of one run, its launch count
+    set to 0 just before it and read just after."""
+    from repro_torch.kernels.ensemble_fitness import kernel
+    from repro_torch.obs.metrics import Stopwatch
+    kernel.KERNEL.launches = 0
+    sw = Stopwatch().start()
+    with recorded_fitness_shapes(set() if shapes is None else shapes):
+        res = exp.run()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return res, sw.stop(), kernel.KERNEL.launches
+
+
+def faults_phase(torch):
+    """Configuration 10: examples/specs/byzantine_ring.json at its full
+    size on the card and on the CPU."""
+    from repro_torch.sim import Experiment
+    spec = chaos_spec("faults")
+    print("async config 10:", json.dumps(
+        {"spec": spec.to_dict(), "reduced": {}, "runs": ["cuda", "cpu"]},
+        allow_nan=False))
+    per_batch = 2 * spec.selection.generations + 1
+    shapes = set()
+    exp = Experiment(spec, device="cuda")
+    card, wall, launches = _timed_run(torch, exp, "cuda", shapes)
+    n_ran = async_report("async config 10 (cuda)", card, wall, launches,
+                         per_batch)
+    cpu, wall_c, launches_c = _timed_run(
+        torch, Experiment(spec, device="cpu"), "cpu")
+    async_report("async config 10 (cpu)", cpu, wall_c, launches_c, None)
+    same = {f: getattr(card.trace, f) == getattr(cpu.trace, f)
+            for f in ("events", "net", "bench_sizes", "select_batches")}
+    print(f"async config 10: card == CPU: {same}; net faults "
+          f"{json.dumps(card.net['faults'])}, admission "
+          f"{json.dumps(card.net['admission'])}")
+    check(all(same.values()), f"async config 10: card and CPU differ: "
+                              f"{same}")
+    byz = exp.faults.byzantine.clients
+    held = {c: sorted({e.owner for e in st.entries if e is not None}
+                      & byz)
+            for c, st in enumerate(card.stores) if c not in byz}
+    held = {c: v for c, v in held.items() if v}
+    print(f"async config 10: byzantine owners {sorted(byz)}; honest "
+          f"stores holding their payloads: {held}; fitness shapes "
+          f"{sorted(shapes)}")
+    check(not held, f"async config 10: honest stores hold byzantine "
+                    f"payloads: {held}")
+    return {"launches": launches, "ran": n_ran, "wall_s": wall,
+            "perf": card.perf, "shapes": shapes}
+
+
+def serve_drift_phase(torch):
+    """Configuration 11: examples/specs/serve_drift.json at its full size
+    on the card with the monitor on and off, and on the CPU with it
+    off."""
+    from repro_torch.sim import Experiment
+    runs = (("monitor on", "cuda", True), ("monitor off", "cuda", False),
+            ("monitor off cpu", "cpu", False))
+    shapes = set()
+    out = {}
+    for name, device, monitor in runs:
+        spec = chaos_spec("serve", monitor=monitor)
+        if name == "monitor on":
+            print("async config 11:", json.dumps(
+                {"spec": spec.to_dict(), "reduced": {},
+                 "runs": [r[:2] for r in runs]}, allow_nan=False))
+        res, wall, launches = _timed_run(
+            torch, Experiment(spec, device=device), device,
+            shapes if device == "cuda" else None)
+        what = f"async config 11 {name} ({device})"
+        per_batch = 2 * spec.selection.generations + 1
+        n_ran = async_report(what, res, wall, launches,
+                             per_batch if device == "cuda" else None)
+        print(f"{what}: net serve {json.dumps(res.net['serve'])}")
+        out[name] = {"res": res, "launches": launches, "ran": n_ran,
+                     "wall_s": wall, "perf": res.perf}
+    on, off, cpu = (out[k]["res"] for k in ("monitor on", "monitor off",
+                                            "monitor off cpu"))
+    same = {f: getattr(off.trace, f) == getattr(cpu.trace, f)
+            for f in ("events", "bench_sizes", "select_batches")}
+    # the window accuracy is the one figure that depends on what the
+    # card's and the CPU's GA picked (their random streams differ)
+    net_card, net_cpu = copy.deepcopy(off.net), copy.deepcopy(cpu.net)
+    w_card = net_card["serve"].pop("window_acc")
+    w_cpu = net_cpu["serve"].pop("window_acc")
+    same["net (window_acc aside)"] = net_card == net_cpu
+    print(f"async config 11: monitor off, card == CPU: {same}; window "
+          f"accuracy card {w_card}, CPU {w_cpu}")
+    check(all(same.values()), f"async config 11: monitor-off card and CPU "
+                              f"differ: {same}")
+    sv, sv_off = on.net["serve"], off.net["serve"]
+    monitor_ticks = sorted({t for t, _ in on.select_batches}
+                           - {t for t, _ in off.select_batches})
+    ran = set(ran_batches(on))
+    missing = [t for t in monitor_ticks if t not in ran]
+    print(f"async config 11: monitor on: {sv['n_queries']} queries (off: "
+          f"{sv_off['n_queries']}), {sv['n_drift_events']} drift event, "
+          f"{sv['n_reselections']} re-selections; {len(monitor_ticks)} "
+          f"select ticks only the monitor made, each ran a GA: "
+          f"{not missing}; fitness shapes {sorted(shapes)}")
+    check(sv["n_queries"] == sv_off["n_queries"], "async config 11: the "
+          "monitor changed the query traffic")
+    check(sv["n_drift_events"] == 1 and sv["n_reselections"] >= 1,
+          f"async config 11: drift {sv['n_drift_events']}, re-selections "
+          f"{sv['n_reselections']}")
+    check(not missing, f"async config 11: monitor ticks {missing} ran no "
+                       "GA")
+    for v in out.values():
+        del v["res"]
+    out["shapes"] = shapes
+    return out
+
+
+def serve_paper_phase(torch, sync_exp, sync_res):
+    """Configuration 12: configuration 8 (the sync slice's datasets and
+    trained models injected) serving Poisson queries with a label shift
+    and a covariate shift, the monitor on."""
+    import numpy as np
+
+    from repro_torch.core.bench import PredictionStore
+    from repro_torch.sim import Experiment, ExperimentSpec
+    d = paper_spec(ASYNC_PAPER).to_dict()
+    d["serve"] = SERVE_PAPER
+    spec = ExperimentSpec.from_dict(d)
+    print("async config 12:", json.dumps({
+        "spec": spec.to_dict(), "reduced": REDUCED,
+        "injected": "the sync slice's datasets and trained models"},
+        allow_nan=False))
+    devices = {p.device.type for m, _ in sync_exp.models.values()
+               for p in m.parameters()}
+    check(devices == {"cuda"}, f"async config 12: models on {devices}")
+    exp = Experiment(spec, datasets=sync_exp.datasets,
+                     models=sync_exp.models, ccfg=sync_exp.ccfg,
+                     device="cuda")
+    batch = SERVE_PAPER["traffic"]["params"]["batch"]
+    forwards = []   # (rows, members) of every masked forward
+    inner = PredictionStore.predictions
+
+    def counted(self, x, mask=None):
+        forwards.append((len(x), None if mask is None
+                         else int(np.asarray(mask).sum())))
+        return inner(self, x, mask)
+    torch.cuda.reset_peak_memory_stats()
+    shapes = set()
+    PredictionStore.predictions = counted
+    try:
+        res, wall, launches = _timed_run(torch, exp, "cuda", shapes)
+    finally:
+        PredictionStore.predictions = inner
+    peak = torch.cuda.max_memory_allocated()
+    per_batch = 2 * spec.selection.generations + 1
+    n_ran = async_report("async config 12", res, wall, launches, per_batch)
+    sv = res.net["serve"]
+    query_fwd = [m for rows, m in forwards if rows == batch]
+    k = spec.selection.ensemble_k
+    print(f"async config 12: net serve {json.dumps(sv)}; {len(query_fwd)} "
+          f"masked forwards of {batch}-query batches on the card for "
+          f"{sv['n_batches']} batches (a second one a batch for the "
+          f"frozen shadow ensemble once a client breached), members a "
+          f"forward {min(query_fwd)}-{max(query_fwd)}")
+    check(len(query_fwd) >= sv["n_batches"] > 0
+          and all(1 <= m <= k for m in query_fwd),
+          "async config 12: a query batch was not answered by a masked "
+          "forward of the selected members")
+    off = ExperimentSpec.from_dict({**d, "serve": {**SERVE_PAPER,
+                                                   "monitor": False}})
+    stub = StubServing(off)
+    stub_schedule(off, serving=stub)
+    print(f"async config 12: queries served {sv['n_queries']} + dropped "
+          f"{sv['n_dropped']} against {stub.offered} offered by the "
+          f"stub-selection schedule (monitor off)")
+    check(sv["n_queries"] + sv["n_dropped"] == stub.offered,
+          "async config 12: queries lost or invented")
+    check(sv["n_drift_events"] == 2 and sv["n_reselections"] >= 1,
+          f"async config 12: drift {sv['n_drift_events']}, re-selections "
+          f"{sv['n_reselections']}")
+    acc = res.test_acc
+    perf = res.perf
+    print(f"async config 12: regret {sv['regret']}, latency p50 "
+          f"{sv['latency_p50']} s, p99 {sv['latency_p99']} s (virtual), "
+          f"window accuracy {sv['window_acc']}; net_s "
+          f"{perf['phases']['net_s']} s against select_s "
+          f"{perf['phases']['select_s']} s; peak device memory {peak} "
+          f"bytes; fleet-mean test accuracy {float(acc.mean()):.6f} (sync "
+          f"round {float(sync_res.test_acc.mean()):.6f}); fitness shapes "
+          f"{sorted(shapes)}")
+    check(np.isfinite(acc).all() and acc.mean() > 1.0 / spec.data.n_classes,
+          "async config 12: fleet-mean test accuracy at or below chance")
+    return {"launches": launches, "ran": n_ran, "wall_s": wall,
+            "perf": perf, "serve": sv, "peak": peak, "shapes": shapes}
+
+
+def fitness_path_phase(torch, shapes):
+    """The fitness kernel at the (N, P, M) shapes configurations 10-12
+    launched: held against its plain version and, at each
+    configuration's widest batches, timed against it with its bound."""
+    import numpy as np
+
+    from repro_torch.kernels.ensemble_fitness import kernel, ref
+    rng = np.random.default_rng(1)
+    widest = {what: sorted(s for s in found
+                           if s[0] == max(n for n, _, _ in found))
+              for what, found in shapes.items() if found}
+    timed = set().union(*map(set, widest.values()))
+    max_err, timings = 0.0, {}
+    for shape in sorted(set().union(*shapes.values())):
+        pop, acc, S = make_inputs(torch, rng, *shape)
+
+        def run_kernel(pop=pop, acc=acc, S=S):
+            return kernel.ensemble_fitness_batched(pop, acc, S)
+
+        def run_plain(pop=pop, acc=acc, S=S):
+            return ref.ensemble_fitness_batched_ref(pop, acc, S)
+        got = run_kernel()
+        torch.cuda.synchronize()
+        err = max(float((g - w).abs().max())
+                  for g, w in zip(got, run_plain()))
+        max_err = max(max_err, err)
+        check(err <= TOL, f"ensemble_fitness at {shape} disagrees with its "
+                          f"plain version: {err}")
+        line = f"kernel ensemble_fitness at a path shape {shape}: max abs " \
+               f"err {err:.3e}"
+        if shape in timed:
+            p1, k1, k2, p2 = (time_ms(torch, fn) for fn in
+                              (run_plain, run_kernel, run_kernel, run_plain))
+            k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            (b_ms, b_by), _ = fitness_bound(pop)
+            timings[shape] = (k_ms, p_ms, b_ms, b_by)
+            share(f"ensemble_fitness[batched] {shape}", b_ms, k_ms)
+            line += (f"; kernel {k_ms:.6f} ms ({k1:.6f}, {k2:.6f}), plain "
+                     f"{p_ms:.6f} ms, bound {b_ms:.6f} ms ({b_by}), share "
+                     f"{b_ms / k_ms:.4f}")
+        print(line)
+    print(f"fitness path shapes: the widest batches a configuration "
+          f"{json.dumps(widest)}")
+    return max_err, timings
 
 
 def attention_bound(B, H, KV, Sq, Sk, hd, causal=True, window=0,
@@ -2185,10 +2682,21 @@ def main() -> int:
                 print("  ptxas:", line.strip())
 
     max_err, timings = kernel_phase(torch)
+    training_determinism_phase(torch)
     launches, sync_exp, sync_res = slice_phase(torch)
+    sync_repeat_phase(torch, sync_res)
     paper_async = async_paper_phase(torch, sync_exp, sync_res)
+    serve_paper = serve_paper_phase(torch, sync_exp, sync_res)
     del sync_exp, sync_res
     gossip = gossip_churn_phase(torch)
+    faults = faults_phase(torch)
+    serve_drift = serve_drift_phase(torch)
+    path_err, path_timings = fitness_path_phase(torch, {
+        "async config 10": faults["shapes"],
+        "async config 11": serve_drift.pop("shapes"),
+        "async config 12": serve_paper["shapes"]})
+    max_err = max(max_err, path_err)
+    timings.update({("batched",) + k: v for k, v in path_timings.items()})
     torch.cuda.empty_cache()
     flash = flash_phase(torch)[SLICE_SHAPE]
     scans = scan_phase(torch)
@@ -2219,11 +2727,16 @@ def main() -> int:
             "sync slice": launches,
             "async config 8": paper_async["launches"],
             **{f"async config 9 {k}": v["launches"]
-               for k, v in gossip.items()}},
+               for k, v in gossip.items()},
+            "async config 10": faults["launches"],
+            **{f"async config 11 {k}": v["launches"]
+               for k, v in serve_drift.items()},
+            "async config 12": serve_paper["launches"]},
         "by_shape": {str(shape): dict(zip(
             ("ms", "plain_ms", "bound_ms", "bound_by"),
             timings[("batched",) + shape]))
-            for shape in [(32, 200, 100)] + FITNESS_ASYNC_SHAPES}}, {
+            for shape in [(32, 200, 100)] + FITNESS_ASYNC_SHAPES
+            + sorted(path_timings)}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",

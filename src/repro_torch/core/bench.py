@@ -119,6 +119,51 @@ class PredictionStore:
         self.slot_gen[slot] += 1
         self._mark_dirty(slot)
 
+    def invalidate(self, model_id: int) -> bool:
+        """Expel a resident model (admission-gate rejection of a refresh
+        that turned bad — repro_torch.faults). True iff something was
+        expelled."""
+        slot = self._slot_for(model_id)
+        if slot is None or not self.mask[slot]:
+            return False
+        self._clear_slot(slot)
+        return True
+
+    def wipe(self) -> int:
+        """Drop EVERY resident model (a crash losing the volatile store).
+        Returns the number of slots cleared; generations bump so nothing
+        cached survives the reboot."""
+        occupied = np.flatnonzero(self.mask)
+        for slot in occupied:
+            self._clear_slot(int(slot))
+        return len(occupied)
+
+    def refresh_validation(self, x_val: np.ndarray, y_val: np.ndarray,
+                           preds: np.ndarray) -> None:
+        """Replace the validation set in place (serving-time distribution
+        drift — DESIGN.md §14): same width, new inputs/labels, and the
+        matching (capacity, n_val, C) prediction rows for EVERY slot.
+        Slot membership, generations, and contribution stats survive —
+        the resident models did not change, the world they are scored
+        against did — but every slot goes dirty so device mirrors
+        rebuild their cached statistics against the new labels."""
+        if len(y_val) != self.n_val:
+            raise ValueError(
+                f"refresh_validation keeps the store width: got "
+                f"{len(y_val)} labels for n_val={self.n_val}")
+        preds = np.asarray(preds, np.float32)
+        if preds.shape != (self.capacity, self.n_val, self.n_classes):
+            raise ValueError(
+                f"refresh_validation wants preds of shape "
+                f"{(self.capacity, self.n_val, self.n_classes)}, got "
+                f"{preds.shape}")
+        self.x_val = x_val
+        self.labels[:self.n_val] = np.asarray(y_val, np.int32)
+        self.preds[:, :self.n_val] = np.where(self.mask[:, None, None],
+                                              preds, 0.0)
+        for slot in range(self.capacity):
+            self._mark_dirty(slot)
+
     def note_selection(self, selected: np.ndarray, t: float = 0.0):
         """The engine selected these slots at time t — the contribution
         signal the streaming store's eviction policy ranks by."""

@@ -148,6 +148,21 @@ class DeviceStoreBatch:
                            | set(store.dirty_seq))
         self._cursor.append(store._dirty_clock)
 
+    def refresh_labels(self, client: int) -> None:
+        """A store's validation set was replaced in place
+        (`PredictionStore.refresh_validation`): re-upload its label row
+        and mark EVERY slot dirty — including empty ones, whose cached
+        acc seeds (`_zero_row_acc`) depend on the label-0 fraction — so
+        the next flush rebuilds this client's statistics bit for bit as a
+        from-scratch mirror of the refreshed store would."""
+        store = self.stores[client]
+        row = np.full((self.v_max,), -1, np.int32)
+        row[:store.v_pad] = store.labels
+        self.labels[client] = torch.as_tensor(row, device=self.device)
+        self.nv[client] = float(max(int((row >= 0).sum()), 1))
+        self.acc[client] = float(_zero_row_acc(row))
+        self._dirty[client].update(range(self.capacity))
+
     def _drain(self):
         """Per-client sorted dirty-slot groups (advancing OUR cursor over
         each store's dirty log). Returns (groups [(client, slots)],

@@ -15,6 +15,14 @@ legacy restack path (`device_resident=False`) is not ported.
 Client batches are padded to the next power of two by repeating the
 first client, as in the reference, so every batch of a run has one of
 O(log N) shapes.
+
+`replay` feeds selection outcomes from outside, as `run_nsga2_batched`'s
+`draws=` feeds a GA's draws: when set, each select() still flushes the
+device statistics, then takes its per-client results from
+`replay(ready, t)` instead of running the GA. Parity tests replay the
+reference engine's recorded selections through it, so that runs whose
+events depend on what was selected (a serving monitor) can be held to
+the reference exactly.
 """
 from __future__ import annotations
 
@@ -57,6 +65,7 @@ class SelectionEngine:
         self.metrics = metrics if metrics is not None else NULL_METRICS
         self.results: Dict[int, dict] = {}   # client -> last selection dict
         self._keys_cache: Dict[tuple, list] = {}  # batch -> stream seeds
+        self.replay = None   # (ready, t) -> {client: result}, see above
 
     def _check_width(self, store):
         if store.v_pad > self._v_max:
@@ -102,24 +111,44 @@ class SelectionEngine:
             mx.observe("engine.flush_dirty_slots", n_dirty, t=t)
         else:
             self.store_batch.flush()
-        sb = self.store_batch
-        if batch == list(range(len(self.stores))):
-            preds, labels, masks, acc, S = (sb.preds, sb.labels, sb.masks,
-                                            sb.acc, sb.S)
+        if self.replay is not None:
+            picked = self.replay(ready, t)
+            rows = [{k: np.asarray(v) for k, v in picked[c].items()}
+                    for c in ready]
         else:
-            preds, labels, masks, acc, S = sb.gather(batch)
-        out = select_ensembles_from_stats(acc, S, preds, labels, self.nsga,
-                                          keys=keys, model_mask=masks)
-        # ONE device->host transfer per result key
-        host = {k: v.cpu().numpy() for k, v in out.items()}
+            sb = self.store_batch
+            if batch == list(range(len(self.stores))):
+                preds, labels, masks, acc, S = (sb.preds, sb.labels,
+                                                sb.masks, sb.acc, sb.S)
+            else:
+                preds, labels, masks, acc, S = sb.gather(batch)
+            out = select_ensembles_from_stats(acc, S, preds, labels,
+                                              self.nsga, keys=keys,
+                                              model_mask=masks)
+            # ONE device->host transfer per result key
+            host = {k: v.cpu().numpy() for k, v in out.items()}
+            rows = [{k: v[i] for k, v in host.items()}
+                    for i in range(len(ready))]
         fresh = {}
-        for i, c in enumerate(ready):
-            res = {k: v[i] for k, v in host.items()}
+        for c, res in zip(ready, rows):
             res["slot_gen"] = self.stores[c].slot_gen.copy()
             self.stores[c].note_selection(res["chromosome"] > 0.5, t)
             self.results[c] = res
             fresh[c] = res
         return fresh
+
+    def refresh_validation(self, c: int, x_val, y_val, preds) -> None:
+        """Serving-time drift refresh (DESIGN.md §14): swap client c's
+        validation set in place and keep the device mirror coherent —
+        the label row re-uploads and every slot goes dirty, so the next
+        flush rebuilds the cached acc/S statistics against the shifted
+        world. The client's cached selection result is KEPT: the
+        resident ensemble keeps serving (the staleness the serving
+        monitor measures) until a re-selection replaces it."""
+        store = self.stores[c]
+        self._check_width(store)
+        store.refresh_validation(x_val, y_val, preds)
+        self.store_batch.refresh_labels(c)
 
     @staticmethod
     def _stale(store, res, chrom: np.ndarray) -> bool:

@@ -3,6 +3,7 @@
 data crosses as numpy arrays and predictions come back as numpy."""
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 
@@ -70,6 +71,24 @@ def accuracy(probs: np.ndarray, y: np.ndarray) -> float:
     return float((probs.argmax(-1) == y).mean())
 
 
+@contextlib.contextmanager
+def repeatable_cudnn():
+    """Scope in which cuDNN picks only deterministic algorithms, and picks
+    them by its heuristics rather than by timing (`benchmark` off): the
+    convolutions' backward then sums in one order every run, so a fixed
+    seed gives the same trained bits. The previous flags come back on
+    exit, so nothing outside local training (LLM serving and training in
+    the same process) changes. cuBLAS needs nothing here: its products
+    on one stream are repeatable without a workspace setting."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = prev
+
+
 def train_local_model(family: str, cfg: CNNConfig, seed: int,
                       data: ClientData, *, lr: float = 0.05,
                       batch: int = 32, max_epochs: int = 60,
@@ -79,7 +98,9 @@ def train_local_model(family: str, cfg: CNNConfig, seed: int,
     (the paper's protocol: the best-validation checkpoint is kept).
     Minibatch indices come from `np.random.default_rng(seed)` drawn as
     the reference draws them; one epoch's indices cross to the device in
-    one copy, so the steps of an epoch never wait on the host.
+    one copy, so the steps of an epoch never wait on the host. Training
+    runs under `repeatable_cudnn`, so on the card too the result is a
+    function of the seed and the data alone.
 
     Returns (best_model, best_val_acc, history)."""
     dev = resolve_device(device)
@@ -96,24 +117,26 @@ def train_local_model(family: str, cfg: CNNConfig, seed: int,
     best_acc, since_best = -1.0, 0
     best = [p.detach().clone() for p in params]
     history = []
-    for _ in range(max_epochs):
-        idx = torch.as_tensor(
-            np.stack([rng.integers(0, n, batch)
-                      for _ in range(steps_per_epoch)]), device=dev)
-        for step in range(steps_per_epoch):
-            loss = F.cross_entropy(model(x_tr[idx[step]]), y_tr[idx[step]])
-            grads = torch.autograd.grad(loss, params)
-            opt.update(grads, state, params, lr)
-        va = accuracy(predict_probs(family, cfg, model, data.x_va),
-                      data.y_va)
-        history.append(va)
-        if va > best_acc:
-            best_acc, since_best = va, 0
-            best = [p.detach().clone() for p in params]
-        else:
-            since_best += 1
-            if since_best >= patience:
-                break
+    with repeatable_cudnn():
+        for _ in range(max_epochs):
+            idx = torch.as_tensor(
+                np.stack([rng.integers(0, n, batch)
+                          for _ in range(steps_per_epoch)]), device=dev)
+            for step in range(steps_per_epoch):
+                loss = F.cross_entropy(model(x_tr[idx[step]]),
+                                       y_tr[idx[step]])
+                grads = torch.autograd.grad(loss, params)
+                opt.update(grads, state, params, lr)
+            va = accuracy(predict_probs(family, cfg, model, data.x_va),
+                          data.y_va)
+            history.append(va)
+            if va > best_acc:
+                best_acc, since_best = va, 0
+                best = [p.detach().clone() for p in params]
+            else:
+                since_best += 1
+                if since_best >= patience:
+                    break
     with torch.no_grad():
         for p, b in zip(params, best):
             p.copy_(b)

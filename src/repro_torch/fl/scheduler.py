@@ -45,9 +45,7 @@ The exchange layer is pluggable (DESIGN.md §6, §8):
 All latency draws come from per-(src, dst, model, attempt, version)
 fold_in-style streams (`p2p.transport.edge_rng`), never from a shared rng
 consumed in event order, so a trace is a pure function of the seed — and
-equal, event for event, to the reference's for the same inputs. The
-reference's fault and serving hooks (crash/restart/partition/heal and
-query/drift events) wait for those layers (ROADMAP.md queue 1).
+equal, event for event, to the reference's for the same inputs.
 """
 from __future__ import annotations
 
@@ -120,7 +118,8 @@ def simulate_async(cfg: AsyncConfig, neighbors, train_cost: Callable,
                    on_add: Optional[Callable] = None,
                    on_select_batch: Optional[Callable] = None,
                    transport=None, gossip=None, churn=None,
-                   repair=None, obs=None) -> AsyncTrace:
+                   repair=None, faults=None, on_crash=None,
+                   serving=None, obs=None) -> AsyncTrace:
     """train_cost(client, local_idx) -> virtual duration of that training.
     on_add(client, model_key, t) — a model (own or peer) entered the
       client's bench; the engine uses this to incrementally materialize
@@ -134,6 +133,23 @@ def simulate_async(cfg: AsyncConfig, neighbors, train_cost: Callable,
       with per-edge deterministic latency streams.
     repair — optional p2p.AntiEntropyRepair (requires transport AND
       gossip): drives the periodic digest / bounded-resend event kinds.
+    faults — optional repro_torch.faults.FaultController: seeds the heap with
+      "crash"/"restart"/"partition"/"heal" events, gates sends on crash
+      downtime and cut edges, runs the per-delivery corruption check, and
+      marks corrupt-admitted payloads for the driver's on_add. Every
+      consultation is behind `faults is not None`, so a fault-free run is
+      byte-identical to one without the parameter.
+    on_crash(client, t) — driver hook fired when a crash event wipes a
+      client's bench (the driver wipes its prediction store and any
+      admission-gate state in the same instant).
+    serving — optional repro_torch.serve.ServingEngine: seeds the heap with
+      "query"/"drift" events (every micro-batch precomputed from the
+      serve seed), answers each query batch from the client's current
+      ensemble, and — when its accuracy monitor breaches — requests a
+      re-selection through the standard debounced select grid. Offline
+      clients (churn or crash) drop their query batches. Every
+      consultation is behind `serving is not None`, so a serve-free run
+      is byte-identical to one without the parameter.
     obs — optional repro_torch.obs.probes.Obs: when given, the loop
       feeds the metrics registry (coverage gauge, select-batch width, select
       wall time) and — if `obs.trace` is set — the per-event Perfetto
@@ -198,6 +214,13 @@ def simulate_async(cfg: AsyncConfig, neighbors, train_cost: Callable,
         if churn is not None and not churn.is_online(src, t):
             n_lost_offline += 1
             return
+        if faults is not None:
+            if not faults.is_online(src, t):
+                n_lost_offline += 1  # crashed sender: nothing goes out
+                return
+            if faults.edge_cut(src, dst, t):
+                faults.stats.n_partition_blocked += 1
+                return  # the link is physically down, no transport attempt
         if version is None:
             version = gossip.have[src].get(key, 0) if gossip is not None \
                 else 0
@@ -248,6 +271,13 @@ def simulate_async(cfg: AsyncConfig, neighbors, train_cost: Callable,
     if repair is not None:
         for a, b in repair.edges:
             push(repair.cfg.start, "digest_send", a, b)
+    if faults is not None:
+        for ft, fkind, fc, fpay in faults.initial_events():
+            push(ft, fkind, fc, fpay)
+    if serving is not None:
+        for st, skind, sc, spay in serving.initial_events():
+            push(st, skind, sc, spay)
+
     while q:
         t, _, kind, c, payload, src = heapq.heappop(q)
         if kind == "select":
@@ -262,6 +292,12 @@ def simulate_async(cfg: AsyncConfig, neighbors, train_cost: Callable,
         if kind == "trained":
             if churn is not None and churn.departed(c, t):
                 continue  # client left before finishing this training
+            if faults is not None and (not faults.is_online(c, t)
+                                       or payload in bench[c]):
+                # crashed mid-training (the restart handler re-admits
+                # durable artifacts), or the restart at exactly this t
+                # already re-admitted it — never admit twice
+                continue
             if tc is not None:
                 tc.slice(c, f"train m{payload[1]}", t - durs[c, payload[1]],
                          t, cat="train")
@@ -276,7 +312,8 @@ def simulate_async(cfg: AsyncConfig, neighbors, train_cost: Callable,
                 send_model(c, dst, key, t)
         elif kind == "recv":
             key, ver = payload
-            away = churn is not None and not churn.is_online(c, t)
+            away = (churn is not None and not churn.is_online(c, t)) \
+                or (faults is not None and not faults.is_online(c, t))
             if tc is not None:  # flow ends bind to this arrival slice
                 tc.slice(c, ("recv lost" if away else "recv") +
                          f" ({key[0]},{key[1]})", t, t, cat="recv",
@@ -297,19 +334,63 @@ def simulate_async(cfg: AsyncConfig, neighbors, train_cost: Callable,
                         push(t + repair.cfg.interval, "digest_send", c,
                              dst)
                 continue
+            if faults is not None:
+                verdict = faults.corrupt_check(src, c, key, ver)
+                if verdict == "detected":
+                    # checksum caught the corruption: the delivery is
+                    # discarded, the sender's belief invalidated, and the
+                    # receiver's digest streams re-armed so anti-entropy
+                    # re-delivers — same recovery path as an offline loss
+                    if transport is not None:
+                        transport.stats.n_corrupt_detected += 1
+                    if gossip is not None:
+                        gossip.note_lost(src, c, key)
+                    if repair is not None:
+                        for dst in repair.wake(c, t):
+                            push(t + repair.cfg.interval, "digest_send",
+                                 c, dst)
+                    continue
+                if verdict == "admitted":
+                    if transport is not None:
+                        transport.stats.n_corrupt_admitted += 1
+                    faults.mark_corrupt(c, key)
             if gossip is not None:
                 accepted, forwards = gossip.on_receive(c, src, key, t,
                                                        version=ver)
                 if accepted and key not in bench[c]:
                     admit(c, key, t)
                     schedule_select(c, t)
+                elif accepted and faults is not None \
+                        and on_add is not None:
+                    # a higher-version refresh of a resident key (a
+                    # rejoined owner's re-announcement): the CONTENT may
+                    # have changed — re-materialize and re-screen
+                    on_add(c, key, t)
+                    schedule_select(c, t)
                 for dst, fkey in forwards:
                     send_model(c, dst, fkey, t)
             elif key not in bench[c]:
                 admit(c, key, t)
                 schedule_select(c, t)
+            if faults is not None:
+                # a marked corrupt delivery that never reached an on_add
+                # (version dedupe) must not poison a later clean one
+                faults.clear_corrupt(c, key)
         elif kind == "digest_send":
-            entries, rnd, nb, again = repair.poll(c, payload, t)
+            if faults is not None:
+                # a cut or crashed sender still consumes a digest round
+                # (so even an unhealed partition cannot keep the stream
+                # alive past max_rounds); the heal handler re-arms edges
+                # that quiesced during the window
+                cut = faults.edge_cut(c, payload, t)
+                s_on = ((not cut) and faults.is_online(c, t)
+                        and (churn is None or churn.is_online(c, t)))
+                entries, rnd, nb, again = repair.poll(c, payload, t,
+                                                      sender_online=s_on)
+                if cut and again:
+                    faults.stats.n_partition_blocked += 1
+            else:
+                entries, rnd, nb, again = repair.poll(c, payload, t)
             if again:
                 push(t + repair.cfg.interval, "digest_send", c, payload)
             if entries is not None:
@@ -344,11 +425,19 @@ def simulate_async(cfg: AsyncConfig, neighbors, train_cost: Callable,
                 push(t + repair.cfg.interval, "digest_send", c, src)
         elif kind == "resend":
             dst, key, ver = payload
-            if churn is not None and not churn.is_online(c, t):
+            offline_c = churn is not None and not churn.is_online(c, t)
+            cut = False
+            if faults is not None:
+                offline_c = offline_c or not faults.is_online(c, t)
+                cut = faults.edge_cut(c, dst, t)
+            if offline_c or cut:
                 # swallowed before the transport: the attempt refunds so
                 # max_attempts bounds transmissions, not intentions
                 repair.refund_attempt(c, dst, key, ver)
-                n_lost_offline += 1
+                if cut and not offline_c:
+                    faults.stats.n_partition_blocked += 1
+                else:
+                    n_lost_offline += 1
             else:
                 if tc is not None:
                     tc.slice(c, f"resend ({key[0]},{key[1]})", t, t,
@@ -358,6 +447,74 @@ def simulate_async(cfg: AsyncConfig, neighbors, train_cost: Callable,
                     # rejected at send time — nothing crossed the wire,
                     # so this was not a transmission either
                     repair.refund_attempt(c, dst, key, ver)
+        elif kind == "crash":
+            # client c loses its VOLATILE state: bench membership, the
+            # driver's prediction store (via on_crash), and its gossip
+            # beliefs. Trained-model artifacts are durable — the restart
+            # handler re-admits them.
+            faults.note_crash(c, t)
+            if tc is not None:
+                tc.slice(c, "crash", t, t, cat="fault")
+            lost = len(bench[c])
+            if lost:
+                n_admits -= lost
+                bench[c].clear()
+                trace.bench_sizes[c].append((t, 0))
+                if mx.enabled:
+                    mx.set("coverage.fraction", n_admits / cov_total, t=t)
+                if tc is not None:
+                    tc.counter("coverage", t, n_admits / cov_total)
+            if gossip is not None:
+                gossip.note_crash(c)
+            if on_crash is not None:
+                on_crash(c, t)
+        elif kind == "restart":
+            # rejoin: fresh gossip incarnation (re-announcements outrank
+            # every pre-crash version), re-admit durable local models,
+            # re-disseminate
+            faults.note_restart(c, t)
+            if tc is not None:
+                tc.slice(c, "restart", t, t, cat="fault")
+            if gossip is not None:
+                gossip.note_rejoin(c, t)
+            for m in range(cfg.models_per_client):
+                mkey = (c, m)
+                if completions[c, m] <= t and mkey not in bench[c]:
+                    admit(c, mkey, t)
+                    if gossip is not None:
+                        targets = gossip.on_local(c, mkey, t)
+                    else:
+                        targets = [(nb, mkey) for nb in neighbors[c]]
+                    for dst, fkey in targets:
+                        send_model(c, dst, fkey, t)
+            if want_select and bench[c]:
+                schedule_select(c, t)
+        elif kind == "partition":
+            pass  # the cut is enforced at every send; this marks the trace
+        elif kind == "heal":
+            # edges that quiesced (or round-capped their pending work)
+            # while cut need their digest streams re-armed, otherwise the
+            # accumulated divergence across the former cut never repairs
+            if repair is not None:
+                for a, b in repair.edges:
+                    if faults.crosses_cut(a, b) and repair.rearm(a, b):
+                        push(t + repair.cfg.interval, "digest_send", a, b)
+        elif kind == "query":
+            b_idx, nq = payload
+            away = (churn is not None and not churn.is_online(c, t)) \
+                or (faults is not None and not faults.is_online(c, t))
+            if tc is not None:
+                tc.slice(c, ("query lost" if away else "query")
+                         + f" x{nq}", t, t, cat="serve")
+            if away:
+                serving.note_dropped(c, nq)
+                continue
+            if serving.on_query(c, t, b_idx, nq) and want_select:
+                schedule_select(c, t)
+        elif kind == "drift":
+            # payload is the drift component index; the engine shifts its
+            # affected clients' query streams and validation state
+            serving.on_drift(payload, t)
         elif kind == "select":
             pending_select.discard(c)
             ready = [c]
@@ -385,6 +542,8 @@ def simulate_async(cfg: AsyncConfig, neighbors, train_cost: Callable,
                         ready, {b: sorted(bench[b]) for b in ready}, t) or {}
                 for b in ready:
                     record_selection(b, t, accs.get(b))
+                if serving is not None:
+                    serving.note_selected(ready, t)
             elif on_select is not None:
                 if tc is not None:
                     tc.slice(c, "select x1", t, t, cat="select",
@@ -392,8 +551,11 @@ def simulate_async(cfg: AsyncConfig, neighbors, train_cost: Callable,
                 with sw_select(t=t):
                     acc = on_select(c, sorted(bench[c]), t)
                 record_selection(c, t, acc)
+                if serving is not None:
+                    serving.note_selected([c], t)
 
-    if transport is not None or gossip is not None or churn is not None:
+    if transport is not None or gossip is not None or churn is not None \
+            or faults is not None:
         trace.net = {"lost_offline": n_lost_offline}
         if transport is not None:
             trace.net["transport"] = transport.stats.as_dict()
@@ -401,6 +563,8 @@ def simulate_async(cfg: AsyncConfig, neighbors, train_cost: Callable,
             trace.net["gossip"] = gossip.stats.as_dict()
         if repair is not None:
             trace.net["repair"] = repair.stats.as_dict()
+        if faults is not None:
+            trace.net["faults"] = faults.as_dict()
     wall = sw_wall.stop()
     select_wall = sw_select.total
     trace.perf = {

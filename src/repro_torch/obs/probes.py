@@ -10,9 +10,10 @@ with the reference's names and values (DESIGN.md §11). Live time series
 `repair.digests_on_wire`, `coverage.fraction`) are emitted by the event
 loop and the p2p layers at their probe sites.
 
-The counters of the fault, admission and serving layers, and the
-compiled backend's chunk sampler, wait for those modules (ROADMAP.md
-queue 1).
+The fault, admission and serving layers' counters (`faults.*`,
+`admission.*`, `serve.*`, `transport.corrupt`) come from the same dict's
+`faults`, `admission` and `serve` sections. The compiled backend's chunk
+sampler waits for that backend (ROADMAP.md queue 1 item 5).
 
 Stock sinks (registered by `repro_torch.sim.build` under kind "sink"):
 
@@ -85,6 +86,14 @@ def emit_run_counters(mx: Metrics, net: Optional[dict],
             mx.inc("net.bytes_sent", dig_bytes, kind="digest")
             mx.inc("net.bytes_delivered", tr["bytes_delivered"])
             mx.inc("net.bytes_rejected", tr["bytes_rejected"])
+            # corruption outcomes are emitted only when nonzero, as in the
+            # reference: a run without a corruption injector has no
+            # transport.corrupt series
+            if tr.get("n_corrupt_detected") or tr.get("n_corrupt_admitted"):
+                mx.inc("transport.corrupt", tr["n_corrupt_detected"],
+                       outcome="detected")
+                mx.inc("transport.corrupt", tr["n_corrupt_admitted"],
+                       outcome="admitted")
         mx.inc("net.msgs_lost", net.get("lost_offline", 0),
                cause="offline")
         if go is not None:
@@ -104,6 +113,35 @@ def emit_run_counters(mx: Metrics, net: Optional[dict],
                    rp["n_attempts_exhausted"])
             mx.inc("repair.quiesced", rp["n_quiesced"])
             mx.inc("repair.bytes_digests", rp["bytes_digests"])
+        fa = net.get("faults")
+        if fa is not None:
+            mx.inc("faults.injected", fa["n_byzantine_poisoned"],
+                   kind="byzantine")
+            mx.inc("faults.injected", fa["n_corrupt_detected"]
+                   + fa["n_corrupt_admitted"], kind="corruption")
+            mx.inc("faults.injected", fa["n_crashes"], kind="crash")
+            mx.inc("faults.injected", fa["n_partition_blocked"],
+                   kind="partition")
+            mx.inc("faults.restarts", fa["n_restarts"])
+        ad = net.get("admission")
+        if ad is not None:
+            mx.inc("admission.models", ad["n_admitted"],
+                   outcome="admitted")
+            mx.inc("admission.models", ad["n_quarantined"],
+                   outcome="quarantined")
+            mx.inc("admission.models", ad["n_rejected"],
+                   outcome="rejected")
+            mx.inc("admission.invalidated", ad["n_invalidated"])
+        sv = net.get("serve")
+        if sv is not None:
+            mx.inc("serve.queries", sv["n_queries"], outcome="served")
+            mx.inc("serve.queries", sv["n_dropped"], outcome="dropped")
+            mx.inc("serve.reselections", sv["n_reselections"])
+            mx.inc("serve.drift_events", sv["n_drift_events"])
+            mx.set("serve.regret", sv["regret"])
+            if sv["latency_p50"] is not None:
+                mx.set("serve.latency_s", sv["latency_p50"], q="p50")
+                mx.set("serve.latency_s", sv["latency_p99"], q="p99")
     if coverage is not None:
         mx.set("coverage.fraction", float(coverage))
         # NaN (never reached full coverage) stays NaN in the frame and

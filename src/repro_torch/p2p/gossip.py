@@ -1,5 +1,5 @@
 """Push / push-pull gossip with per-model version vectors (port of
-`repro/p2p/gossip.py`; the crash-restart hooks wait for the fault layer).
+`repro/p2p/gossip.py`).
 
 The seed scheduler broadcast a trained model one hop to its neighbors and
 stopped — fine on a full graph, silent partitions on anything sparse.
@@ -101,15 +101,45 @@ class GossipProtocol:
             {dst: set() for dst in self.neighbors[c]} for c in range(n)]
         self.stats = GossipStats()
         self.metrics = NULL_METRICS  # live series (DESIGN.md §11)
+        # crash-restart support (repro_torch.faults): a rejoining client
+        # bumps its incarnation so its re-announcements outrank every held
+        # version, and `rejoined_at` lets owner-gone checks distinguish
+        # "departed for good" from "was down, came back".
+        self.incarnation: List[int] = [0] * n
+        self.rejoined_at: Dict[int, float] = {}
 
     # ---- helpers ------------------------------------------------------
     def owner_gone(self, owner: int, t: float,
                    churn: Optional[ChurnSchedule] = None) -> bool:
-        """Should owner's models stop propagating as of time t? (The
-        reference also lets a recorded crash-restart rejoin override the
-        departure; the port has no fault layer yet, so no rejoin exists.)"""
+        """Should owner's models stop propagating as of time t? A
+        departure counts unless a crash-restart rejoin at r <= t was
+        recorded after it."""
         ch = self.churn if churn is None else churn
-        return ch is not None and ch.departed(owner, t)
+        if ch is None or not ch.departed(owner, t):
+            return False
+        r = self.rejoined_at.get(owner)
+        return r is None or r > t
+
+    def note_crash(self, c: int) -> None:
+        """Client c lost its volatile state: it no longer holds anything,
+        and its beliefs about what peers hold are gone with it."""
+        self.have[c].clear()
+        for known in self.peer_has[c].values():
+            known.clear()
+
+    def note_rejoin(self, c: int, t: float) -> None:
+        """Client c is back after a crash: bump its incarnation (so its
+        re-announced models outrank any version peers still hold), and
+        drop every OTHER client's belief that c holds anything — those
+        beliefs describe the pre-crash incarnation and would otherwise
+        dedupe the re-dissemination c now needs."""
+        self.incarnation[c] += 1
+        self.rejoined_at[c] = t
+        self.note_crash(c)
+        for x in range(len(self.neighbors)):
+            known = self.peer_has[x].get(c)
+            if known:
+                known.clear()
 
     def _targets(self, c: int, key: ModelKey, version: int, t: float,
                  exclude: int = -1) -> List[int]:
@@ -152,11 +182,12 @@ class GossipProtocol:
     def on_local(self, c: int, key: ModelKey, t: float,
                  version: Optional[int] = None
                  ) -> List[Tuple[int, ModelKey]]:
-        """Client c produced (trained) a model: record and push. The
-        version defaults to 0, the fault-free lifetime's (the reference
-        bumps it past every shipped copy after a crash-restart)."""
+        """Client c produced (trained, or re-admitted after a restart) a
+        model: record and push. The version defaults to c's current
+        incarnation — 0 for the fault-free lifetime, bumped past every
+        previously-shipped copy after each rejoin."""
         if version is None:
-            version = 0
+            version = self.incarnation[c]
         self.have[c][key] = version
         return [(dst, key) for dst in self._targets(c, key, version, t)]
 

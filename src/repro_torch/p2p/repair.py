@@ -1,6 +1,5 @@
 """Anti-entropy repair: periodic digest exchange + bounded re-sends (port
-of `repro/p2p/repair.py`; the partition-heal re-arm waits for the fault
-layer).
+of `repro/p2p/repair.py`).
 
 The push/push-pull gossip layer (p2p.gossip) is an epidemic over LOSSY
 links: with the `note_sent` contract fixed, a dropped forward leaves the
@@ -139,14 +138,20 @@ class AntiEntropyRepair:
         self.metrics = NULL_METRICS  # live series (DESIGN.md §11)
 
     # ---- digest emission (sender side) --------------------------------
-    def poll(self, src: int, dst: int, t: float):
+    def poll(self, src: int, dst: int, t: float,
+             sender_online: Optional[bool] = None):
         """The (src -> dst) digest tick fired. Returns (entries, rnd,
         nbytes, reschedule): `entries` is None when no digest goes out
         this tick — a merely-offline sender keeps the stream alive
         (reschedule=True), while a quiesced / round-capped stream or a
         departed destination ends it (reschedule=False; `wake` re-arms
-        quiesced edges). (The reference's `sender_online` override, for
-        crash and partition gates, waits for the fault layer.)"""
+        quiesced edges).
+
+        `sender_online` lets the scheduler compose extra availability
+        gates (crash downtime, a partitioned edge) with churn: when
+        given, it REPLACES the churn online check — an unavailable tick
+        still consumes a round, so even an infinite partition cannot
+        keep a stream alive forever."""
         edge = (src, dst)
         ended = (self.rounds[edge] >= self.cfg.max_rounds
                  or self.calm[edge] >= self.cfg.quiesce_after
@@ -157,7 +162,8 @@ class AntiEntropyRepair:
             return None, 0, 0, False
         rnd = self.rounds[edge]
         self.rounds[edge] = rnd + 1
-        online = self.churn is None or self.churn.is_online(src, t)
+        online = (self.churn is None or self.churn.is_online(src, t)) \
+            if sender_online is None else sender_online
         if not online:
             # an unavailable tick still consumes a round: max_rounds
             # bounds TICKS, not successful sends, otherwise a
@@ -279,3 +285,20 @@ class AntiEntropyRepair:
             self.active.add(edge)
             out.append(dst)
         return out
+
+    # ---- re-arming ----------------------------------------------------
+    def rearm(self, a: int, b: int) -> bool:
+        """Force the (a -> b) digest stream back to life — the heal
+        handler's sweep over previously-partitioned edges. Returns True
+        when the caller must schedule a fresh digest_send tick (the
+        stream had ended); resetting calm alone is not enough, because a
+        stream that quiesced DURING the cut has no future tick on the
+        heap."""
+        edge = (a, b)
+        if edge not in self.rounds:
+            return False
+        self.calm[edge] = 0
+        if edge in self.active or self.rounds[edge] >= self.cfg.max_rounds:
+            return False
+        self.active.add(edge)
+        return True

@@ -86,8 +86,9 @@ class TransportStats:
     bytes_sent: int = 0             # bytes that actually crossed the wire
     bytes_delivered: int = 0
     bytes_rejected: int = 0         # inbox-rejected bytes: never on the wire
-    # wire-corruption outcomes: booked by the fault layer (not ported
-    # yet), zero here; kept so the stats dict has the reference's keys
+    # wire-corruption outcomes (repro_torch.faults): booked by the
+    # scheduler at delivery when a corruption injector is active, zero
+    # otherwise
     n_corrupt_detected: int = 0     # checksum caught it; delivery discarded
     n_corrupt_admitted: int = 0     # corrupted payload reached the receiver
 

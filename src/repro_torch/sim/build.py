@@ -13,13 +13,18 @@ Importing this module registers the stock components:
               "compiled" is registered and raises: the array world is
               not ported yet (ROADMAP.md queue 1)
   sink:       "metrics_json", "perfetto"  (obs.probes)
+  fault:      "byzantine", "corruption", "crash_restart", "partition"
+                                          (faults.injectors)
+  admission:  "validation_gate"           (faults.admission)
+  traffic:    "poisson", "bursty"         (serve.traffic)
+  drift:      "label_shift", "covariate_shift"  (serve.drift)
 
 Each builder receives `(params, ctx)`; `build_network` assembles the
 whole p2p stack in dependency order (topology -> churn -> gossip ->
 transport -> repair) and injects the experiment seed into any component
-whose params omit one — the spec's seed-completeness contract. The
-fault, admission, traffic and drift builders wait for those layers
-(ROADMAP.md queue 1 item 4).
+whose params omit one — the spec's seed-completeness contract;
+`build_faults` and `build_serving` assemble the faults and serve
+sections the same way.
 """
 from __future__ import annotations
 
@@ -29,15 +34,21 @@ import numpy as np
 
 from repro_torch.data import (dirichlet_partition, make_synthetic_images,
                               split_train_val_test)
+from repro_torch.faults import (AdmissionConfig, ByzantineFault,
+                                CorruptionFault, CrashRestartFault,
+                                FaultController, PartitionFault)
 from repro_torch.fl.client import ClientData
 from repro_torch.fl.topology import make_topology
 from repro_torch.obs import probes as _obs_probes
 from repro_torch.p2p.churn import ChurnSchedule
 from repro_torch.p2p.gossip import GossipProtocol
-from repro_torch.p2p.params import check_params
+from repro_torch.p2p.params import check_params, config_from_params
 from repro_torch.p2p.repair import AntiEntropyRepair
 from repro_torch.p2p.transport import (GossipTransport, checkpoint_bytes,
                                        prediction_matrix_bytes)
+from repro_torch.serve import (BurstyTraffic, CovariateShiftDrift,
+                               LabelShiftDrift, PoissonTraffic, ServeConfig,
+                               ServingEngine)
 from repro_torch.sim.registry import build as build_component
 from repro_torch.sim.registry import register
 from repro_torch.sim.spec import ComponentSpec, DataSpec, ExperimentSpec
@@ -146,6 +157,99 @@ def _backend_compiled(params: dict, ctx: dict):
         "schedule.backend='compiled' (the array-world simulator) is not "
         "ported to repro_torch yet (ROADMAP.md queue 1 item 5); use "
         "backend='event'")
+
+
+# ---- fault injectors + admission (DESIGN.md §12) ----------------------
+
+
+@register("fault", "byzantine")
+def _fault_byzantine(params: dict, ctx: dict):
+    return ByzantineFault.from_params(params, ctx["n_clients"])
+
+
+@register("fault", "corruption")
+def _fault_corruption(params: dict, ctx: dict):
+    return CorruptionFault.from_params(params, ctx["n_clients"])
+
+
+@register("fault", "crash_restart")
+def _fault_crash_restart(params: dict, ctx: dict):
+    return CrashRestartFault.from_params(params, ctx["n_clients"])
+
+
+@register("fault", "partition")
+def _fault_partition(params: dict, ctx: dict):
+    return PartitionFault.from_params(params, ctx["n_clients"])
+
+
+@register("admission", "validation_gate")
+def _admission_validation_gate(params: dict, ctx: dict):
+    """Returns the CONFIG, not the controller: the gates need the built
+    stores (labels, class counts), which only the experiment driver
+    holds — it wraps this in an AdmissionController."""
+    return config_from_params(AdmissionConfig, params,
+                              "admission[validation_gate]")
+
+
+def build_faults(spec: ExperimentSpec, n_clients: int):
+    """Aggregate the spec's fault injectors into one FaultController
+    (None when no injectors are declared). `FaultSpec.seed` overrides the
+    experiment seed for every injector whose params omit one."""
+    fa = spec.faults
+    if not fa.injectors:
+        return None
+    base = fa.seed if fa.seed is not None else spec.seed
+    ctx = {"n_clients": n_clients, "seed": base, "spec": spec}
+    injectors = [build_component("fault", _seeded(cs, base), ctx)
+                 for cs in fa.injectors]
+    return FaultController(injectors, n_clients)
+
+
+# ---- serving: traffic + drift (DESIGN.md §14) -------------------------
+
+
+@register("traffic", "poisson")
+def _traffic_poisson(params: dict, ctx: dict):
+    return PoissonTraffic.from_params(params, ctx["n_clients"])
+
+
+@register("traffic", "bursty")
+def _traffic_bursty(params: dict, ctx: dict):
+    return BurstyTraffic.from_params(params, ctx["n_clients"])
+
+
+@register("drift", "label_shift")
+def _drift_label_shift(params: dict, ctx: dict):
+    return LabelShiftDrift.from_params(params, ctx["n_clients"])
+
+
+@register("drift", "covariate_shift")
+def _drift_covariate_shift(params: dict, ctx: dict):
+    return CovariateShiftDrift.from_params(params, ctx["n_clients"])
+
+
+def build_serving(spec: ExperimentSpec, n_clients: int, stores, engine,
+                  query_pools=None):
+    """Assemble the spec's serve section into one ServingEngine (None
+    when no traffic component is declared). `ServeSpec.seed` overrides
+    the experiment seed for the traffic/drift components whose params
+    omit one — the same seed-completeness contract as build_faults."""
+    sv = spec.serve
+    if sv.traffic is None:
+        return None
+    base = sv.seed if sv.seed is not None else spec.seed
+    ctx = {"n_clients": n_clients, "seed": base, "spec": spec}
+    traffic = build_component("traffic", _seeded(sv.traffic, base), ctx)
+    drifts = [build_component("drift", _seeded(cs, base), ctx)
+              for cs in sv.drift]
+    cfg = ServeConfig(
+        policy=sv.policy, monitor=sv.monitor, window=sv.window,
+        threshold=sv.threshold, debounce=sv.debounce,
+        service_time=sv.service_time, des_k=sv.des_k,
+        des_neighbors=sv.des_neighbors, seed=base)
+    return ServingEngine(cfg, traffic, drifts, n_clients=n_clients,
+                         n_classes=spec.data.n_classes, stores=stores,
+                         engine=engine, query_pools=query_pools)
 
 
 # ---- observability sinks ------------------------------------------------

@@ -16,15 +16,19 @@ p2p stack an `ExperimentSpec` describes and dispatches on
            stack (transport, gossip, churn, repair) the spec declares;
            bounded streaming stores and observability (metrics, trace,
            sinks) included. Data kinds: synthetic_images, external,
-           prediction_world, none.
+           prediction_world, none. The faults section adds crash,
+           restart, partition and corruption events, byzantine payloads
+           and the validation gate on the arrival path; the serve
+           section adds query and drift events answered from the
+           selected ensembles, with monitor-triggered re-selection.
 
 It runs on the CUDA device unless `device="cpu"` is passed. Selection
 always scores through the ensemble_fitness wrapper (the CUDA kernel on
 the card), so `selection.use_kernel` is parsed and has no effect. Still
-refused with NotImplementedError (ROADMAP.md queue 1): the faults and
-serve sections (item 4), the compiled backend (item 5) and the restack
-selection path (`selection.device_resident=False`). Otherwise `build()`
-raises the reference's errors for the reference's misconfigurations.
+refused with NotImplementedError (ROADMAP.md queue 1): the compiled
+backend (item 5) and the restack selection path
+(`selection.device_resident=False`). Otherwise `build()` raises the
+reference's errors for the reference's misconfigurations.
 
 Keyword overrides inject pre-built collaborators (the compatibility
 shims' path): anything injected is used as-is, anything absent is built
@@ -41,12 +45,14 @@ import numpy as np
 from repro_torch.core.bench import BenchEntry
 from repro_torch.core.engine import SelectionEngine
 from repro_torch.device import resolve_device
+from repro_torch.faults import AdmissionController
 from repro_torch.fl.client import accuracy
 from repro_torch.fl.scheduler import AsyncConfig, AsyncTrace, simulate_async
 from repro_torch.obs.metrics import Stopwatch, json_ready
 from repro_torch.obs.probes import attach_metrics, finalize_run, make_obs
-from repro_torch.sim.build import (build_client_datasets, build_network,
-                                   build_prediction_world,
+from repro_torch.sim.build import (_seeded, build_client_datasets,
+                                   build_faults, build_network,
+                                   build_prediction_world, build_serving,
                                    build_world_stores)
 from repro_torch.sim.compat import fedpae_config
 from repro_torch.sim.registry import build as build_component
@@ -55,10 +61,9 @@ from repro_torch.sim.spec import ExperimentSpec
 _IMAGE_KINDS = ("synthetic_images", "external")
 
 
-def _not_ported(what: str, item: str = "") -> NotImplementedError:
+def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1"
-        f"{' item ' + item if item else ''})")
+        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1)")
 
 
 @dataclasses.dataclass
@@ -144,6 +149,9 @@ class Experiment:
         self.churn = churn
         self.repair = repair
         self.train_cost = train_cost
+        self.faults = None           # faults.FaultController (or None)
+        self.admission = None        # faults.AdmissionController
+        self.serving = None          # serve.ServingEngine (or None)
         self.obs = None              # repro_torch.obs.probes.Obs once built
         self.perf: dict = {}
         self._runner = None          # the async backend's run(exp)
@@ -231,10 +239,6 @@ class Experiment:
                     'switch to schedule.mode="async" or drop them '
                     "(silently ignoring them would report a lossless "
                     "run as if the declared network had been simulated)")
-        if spec.faults.enabled:
-            raise _not_ported("the faults section", "4")
-        if spec.serve.enabled:
-            raise _not_ported("the serve section", "4")
         if not spec.selection.device_resident:
             raise _not_ported("the restack selection path "
                               "(selection.device_resident=False)")
@@ -315,9 +319,10 @@ class Experiment:
             for slot in ("transport", "gossip", "churn", "repair",
                          "train_cost"):
                 setattr(self, slot, net[slot])
+            self._build_faults_and_serving()
         if self.obs is not None:
             attach_metrics(self.obs.metrics, self.transport, self.gossip,
-                           self.repair)
+                           self.repair, self.serving)
         if spec.obs.sinks:
             ctx = {"obs": self.obs, "spec": spec,
                    "n_clients": data.n_clients}
@@ -325,6 +330,63 @@ class Experiment:
                            for s in spec.obs.sinks]
         self._built = True
         return self
+
+    def _build_faults_and_serving(self) -> None:
+        """The async run's faults and serve sections, with the
+        reference's errors for what a world cannot honor."""
+        spec = self.spec
+        data = spec.data
+        if spec.faults.injectors:
+            self.faults = build_faults(spec, data.n_clients)
+        if self.faults is not None and self.faults.byzantine is not None \
+                and self.stores is None:
+            raise ValueError(
+                "the byzantine injector poisons prediction matrices, "
+                f"but data.kind={data.kind!r} builds no stores — "
+                "silently injecting nothing would report a clean run "
+                "as an attacked one")
+        if spec.faults.admission is not None:
+            if self.stores is None:
+                raise ValueError(
+                    "the admission gate screens against local "
+                    "validation labels, but data.kind="
+                    f"{data.kind!r} builds no stores")
+            fseed = (spec.faults.seed if spec.faults.seed is not None
+                     else spec.seed)
+            adm_cfg = build_component(
+                "admission", _seeded(spec.faults.admission, fseed),
+                {"n_clients": data.n_clients, "seed": fseed, "spec": spec})
+            self.admission = AdmissionController(adm_cfg, self.stores)
+        if not spec.serve.enabled:
+            return
+        if self.stores is None:
+            raise ValueError(
+                "the serve section answers queries from "
+                f"prediction stores, but data.kind={data.kind!r} "
+                'builds none — use "prediction_world" or an '
+                "image world")
+        if self.engine is None:
+            raise ValueError(
+                "the serve section needs selection.enabled=True: "
+                "queries are answered from selected ensembles "
+                "and the monitor triggers re-selection")
+        if spec.serve.monitor and not spec.schedule.select_during_run:
+            raise ValueError(
+                "serve.monitor=True triggers re-selection "
+                "through the in-run select grid, but "
+                "schedule.select_during_run=False disables it — "
+                "enable in-run selection or set "
+                "serve.monitor=False")
+        if data.kind not in _IMAGE_KINDS and any(
+                cs.name == "covariate_shift" for cs in spec.serve.drift):
+            raise ValueError(
+                "drift[covariate_shift] transforms real query "
+                f"inputs, but data.kind={data.kind!r} has none "
+                "— use label_shift or an image world")
+        pools = ([(d.x_te, d.y_te) for d in self.datasets]
+                 if data.kind in _IMAGE_KINDS else None)
+        self.serving = build_serving(spec, data.n_clients, self.stores,
+                                     self.engine, query_pools=pools)
 
     # ---- drivers -------------------------------------------------------
     def run(self) -> RunResult:
@@ -376,36 +438,91 @@ class Experiment:
             member_val_acc=member_accs, perf=dict(self.perf),
             stores=stores, engine=engine, models=self.models)
 
-    def _on_add(self) -> Optional[Callable]:
-        """The arrival hook that materializes a model into a client's
-        store: one forward on the client's validation set (image
-        worlds), or the world's shipped matrix (prediction world)."""
-        data, stores = self.spec.data, self.stores
+    def _base_entry(self) -> Optional[Callable]:
+        """(c, model_key) -> (entry, preds or None): what an arrival
+        materializes — the owner's model, whose forward on the client's
+        validation set fills the slot (image worlds; preds None), or the
+        world's shipped matrix (prediction world)."""
+        data = self.spec.data
         mpc = self.models_per_client
         if data.kind in _IMAGE_KINDS:
             from repro_torch.core.fedpae import _make_entry
             families = self.spec.train.families
             models, ccfg, F = self.models, self.ccfg, len(families)
 
-            def on_add(c, model_key, t):
+            def base_entry(c, model_key):
                 owner, m = model_key
-                stores[c].add(_make_entry(owner, families[m], m, models,
-                                          ccfg, F), t=t)
-            return on_add
+                return _make_entry(owner, families[m], m, models, ccfg,
+                                   F), None
+            return base_entry
         if data.kind == "prediction_world":
             _, mats = self.world
             C = data.n_classes
 
-            def on_add(c, model_key, t):
+            def base_entry(c, model_key):
                 owner, m = model_key
                 gid = owner * mpc + m
-                stores[c].add(
-                    BenchEntry(model_id=gid, owner=owner, family=f"f{m}",
-                               predict=lambda x: np.full(
-                                   (len(x), C), 1.0 / C, np.float32)),
-                    preds=mats[(c, gid)], t=t)
-            return on_add
+                return BenchEntry(
+                    model_id=gid, owner=owner, family=f"f{m}",
+                    predict=lambda x: np.full((len(x), C), 1.0 / C,
+                                              np.float32)), mats[(c, gid)]
+            return base_entry
         return None
+
+    def _on_add(self) -> Optional[Callable]:
+        """The arrival hook that materializes a model into a client's
+        store. With faults or a gate, the fault-aware path: byzantine
+        payloads are poisoned (and so are their later test-time
+        forwards), corrupt-admitted deliveries decode as garbage, and
+        remote arrivals pass the validation gate first."""
+        base_entry = self._base_entry()
+        if base_entry is None:
+            return None
+        stores, faults, adm = self.stores, self.faults, self.admission
+        if faults is None and adm is None:
+            def on_add(c, model_key, t):
+                entry, preds = base_entry(c, model_key)
+                stores[c].add(entry, preds=preds, t=t)
+            return on_add
+
+        def on_add(c, model_key, t):
+            entry, preds = base_entry(c, model_key)
+            if preds is None:   # the forward runs where the model lives
+                preds = entry.predict(stores[c].x_val)
+            owner, gid = entry.owner, entry.model_id
+            if faults is not None and owner != c:
+                if faults.is_byzantine(owner):
+                    preds = faults.poison_payload(preds, c, gid)
+                    # serving this entry must yield the poisoned outputs
+                    # too: wrap the forward and strip the raw params so
+                    # the batched family path — which would serve TRUE
+                    # outputs — never picks it up
+                    entry = dataclasses.replace(
+                        entry, params=None, ccfg=None,
+                        predict=lambda x, f=entry.predict, cc=c,
+                        g=gid: faults.poison_matrix(f(x), cc, g))
+                if faults.take_corrupt(c, model_key):
+                    preds = faults.corrupt_matrix(preds, c, gid)
+            if adm is not None and owner != c:
+                if adm.screen(c, gid, preds, stores[c]) != "admitted":
+                    return
+            stores[c].add(entry, preds=preds, t=t)
+        return on_add
+
+    def _on_crash(self) -> Optional[Callable]:
+        """The crash hook: the scheduler wiped the client's bench; the
+        driver wipes its volatile state too (store slots, quarantine
+        pen)."""
+        if self.faults is None:
+            return None
+        stores, adm = self.stores, self.admission
+
+        def on_crash(c, t):
+            if stores is not None:
+                stores[c].wipe()
+            if adm is not None:
+                adm.on_crash(c)
+        return on_crash
 
     def _run_async_event(self) -> RunResult:
         """The event-granular asynchronous driver: virtual-clock
@@ -441,7 +558,14 @@ class Experiment:
             acfg, self.neighbors, train_cost=self.train_cost,
             on_add=self._on_add(), on_select_batch=on_select_batch,
             transport=self.transport, gossip=self.gossip,
-            churn=self.churn, repair=self.repair, obs=self.obs)
+            churn=self.churn, repair=self.repair, faults=self.faults,
+            on_crash=self._on_crash(), serving=self.serving, obs=self.obs)
+        if self.admission is not None:
+            trace.net = dict(trace.net or {})
+            trace.net["admission"] = self.admission.as_dict()
+        if self.serving is not None:
+            trace.net = dict(trace.net or {})
+            trace.net["serve"] = self.serving.stats_dict()
 
         finals = [s[-1][1] if s else 0
                   for s in trace.bench_sizes.values()]

@@ -24,8 +24,6 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
-# the reference's kinds; "fault", "admission", "traffic" and "drift" have
-# no stock builders in the port yet (ROADMAP.md queue 1 item 4)
 KINDS = ("transport", "gossip", "churn", "repair", "train_cost", "sizer",
          "backend", "sink", "fault", "admission", "traffic", "drift")
 

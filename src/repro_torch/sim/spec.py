@@ -3,7 +3,8 @@
 
 Every section parses and round-trips exactly as in the reference, so one
 spec file drives either package; `repro_torch.sim.Experiment` rejects by
-name what is not ported yet (ROADMAP.md queue 1).
+name the two paths not ported yet: the compiled backend (ROADMAP.md
+queue 1 item 5) and the restack selection path.
 
 `ExperimentSpec` is the single entry point's input (DESIGN.md §9): a
 nested, dict/JSON-round-trippable, seed-complete description of a FedPAE

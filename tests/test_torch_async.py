@@ -450,11 +450,6 @@ def test_refusals_match_reference(ref, name):
 
 
 NOT_PORTED = {
-    "async_faults": ({**ASYNC_WORLD, "faults": {"injectors":
-                                                ["crash_restart"]}},
-                     "queue 1 item 4"),
-    "async_serve": ({**ASYNC_WORLD, "serve": {"traffic": "poisson"}},
-                    "queue 1 item 4"),
     "compiled_backend": ({**ASYNC_WORLD, "schedule": {
         "mode": "async", "backend": "compiled"}}, "queue 1 item 5"),
     "restack": ({**ASYNC_WORLD, "selection": {"device_resident": False}},

@@ -1,6 +1,9 @@
 """The port stands alone: importing every `repro_torch` module, running
 a tiny synchronous slice, a tiny asynchronous run (lossy gossip, churn,
-repair, bounded stores, observability), a tiny ensemble `serve_batch` of
+repair, bounded stores, observability), one with faults and the
+validation gate and one serving queries through a label shift (the
+fault, admission, serving and dynamic-selection modules), a tiny
+ensemble `serve_batch` of
 each ported model family (dense llama3-8b, ssm rwkv6-3b, hybrid
 zamba2-7b) and two training steps of smoke qwen2.5-3b and rwkv6-3b with
 a checkpoint on the CPU loads neither JAX nor any module of the
@@ -40,6 +43,28 @@ spec = ExperimentSpec.from_dict({
                                            "trace": True}})
 res = Experiment.from_spec(spec, device="cpu").run()
 assert res.coverage > 0 and res.metrics.names()
+world = {"data": {"kind": "prediction_world", "n_clients": 6, "n_val": 16},
+         "selection": {"pop_size": 8, "generations": 2, "k": 2},
+         "network": {"topology": "ring", "transport": "gossip",
+                     "gossip": "push", "repair": "anti_entropy"},
+         "schedule": {"mode": "async"}}
+spec = ExperimentSpec.from_dict({**world, "faults": {
+    "injectors": ["byzantine", "corruption", "crash_restart", "partition"],
+    "admission": "validation_gate"}})
+res = Experiment.from_spec(spec, device="cpu").run()
+assert res.net["faults"]["n_crashes"] >= 0 and "admission" in res.net
+spec = ExperimentSpec.from_dict({**world, "serve": {
+    "traffic": {"name": "poisson", "params": {"duration": 3.0}},
+    "drift": [{"name": "label_shift", "params": {"at": 1.5}}]}})
+res = Experiment.from_spec(spec, device="cpu").run()
+assert res.net["serve"]["n_queries"] > 0
+import torch
+from repro_torch.core.dynamic import des_accuracy
+x = torch.rand(8, 4)
+assert float(des_accuracy(x, torch.zeros(8, dtype=torch.int64), x,
+                          torch.zeros(8, dtype=torch.int64),
+                          torch.rand(3, 8, 2), torch.rand(3, 8, 2),
+                          K=2, k=2)) >= 0
 import torch
 from repro_torch.configs import get_smoke
 from repro_torch.launch.serve import serve_batch

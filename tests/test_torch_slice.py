@@ -128,9 +128,8 @@ def test_spec_runs_through_cli(tmp_path):
 
 
 def test_unported_paths_raise(tmp_path):
-    faults = {"faults": {"injectors": ["crash_restart"]}}
-    spec = ExperimentSpec.from_dict(
-        {**SPEC, "schedule": {"mode": "async"}, **faults})
+    compiled = {"schedule": {"mode": "async", "backend": "compiled"}}
+    spec = ExperimentSpec.from_dict({**SPEC, **compiled})
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         Experiment.from_spec(spec, device="cpu").build()
     restack = ExperimentSpec.from_dict(
@@ -139,8 +138,7 @@ def test_unported_paths_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="restack"):
         Experiment.from_spec(restack, device="cpu").build()
     bad = tmp_path / "bad.json"
-    bad.write_text(json.dumps({**SPEC, "schedule": {"mode": "async"},
-                               **faults}, allow_nan=False))
+    bad.write_text(json.dumps({**SPEC, **compiled}, allow_nan=False))
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.sim.run", "--spec", str(bad),
          "--device", "cpu"], capture_output=True, text=True,
