@@ -96,10 +96,39 @@
    GA picked, printed beside); with the monitor on, the same queries,
    one drift, at least one re-selection, and every select tick only the
    monitor made ran a GA; launches 17 x the batches that ran.
+4b''. Restack: the sync slice's fleet selected once on the restack path
+   (`selection.device_resident=False`: a host restack and fresh
+   statistics every select) and once on the resident path, in turns
+   (restack, resident, resident, restack), each timed: 201 fitness
+   launches a select on both; the chromosomes held by outcome (k members
+   everywhere, fleet-mean validation accuracy within 0.02), since cached
+   and one-shot S differ in the last bits.
+4f'. Compiled array world (`sim/compiled.py`, no kernel: eager PyTorch
+   tensor steps on the card). Configuration 13:
+   examples/specs/fleet_sweep.json at its full size (2048 clients,
+   small-world k = 8, 10% drops, anti-entropy repair, tick 0.25,
+   32-tick chunks) must give FLEET_FULL, the JAX package's net dict,
+   t_full 8.75 and 64 ticks; a second run profiles its first chunk
+   (launches a tick, device busy share); at the smoke size (256 clients)
+   card and CPU must agree bitwise (have_tick, net, t_full, ticks).
+   Configuration 14: benchmarks/run.py's full simloop tier (10,000
+   clients, small-world k = 8, ideal links, tick 0.5, 16-tick chunks,
+   the key axis sharded into blocks): coverage 1.0 and n_accepted = K (N
+   - 1). Configuration 14b: the deterministic tier at N = 128 (k = 4,
+   tick 0.05): the port's event loop on the CPU and the compiled backend
+   on the card give equal net dicts. Each prints wall, build_s, scan_s,
+   ticks/s and peak memory beside the card's name and power limit.
+4f''. Configuration 15: configuration 9's prediction world and network
+   (no inbox cap) with fleet_sweep's repair on the compiled backend
+   (32-tick chunks), unbounded stores, on the card and on the CPU:
+   have_tick, net and every store's model ids and predictions equal;
+   then one select() over the 64 clients (GA 24 x 8) on each: 17
+   fitness launches on the card, k members everywhere, fleet-mean
+   validation accuracy within 0.02 of the CPU's.
 4f. Kernel: ensemble_fitness at every (N, P, M) shape configurations
-   10-12 launched (recorded from their runs), held against its plain
-   version; at each configuration's widest batches timed against it
-   with its bound.
+   10-12 and 15 and the restack select launched (recorded from their
+   runs), held against its plain version; at each path's widest batches
+   timed against it with its bound.
 5. Kernel: flash_attention at the reference's test shapes and variants,
    head dim 112, bf16 window and softcap at hd 64, 112 and 128, a ragged
    S = 100, the serving slice's shape (4, 32, 8, 2048, 2048, 128),
@@ -224,8 +253,9 @@
    kernel faster than its bound means the bound is no floor. The shares,
    the `kernels` JSON line (ensemble_fitness's `launches` is the sync
    slice's count; `launches_by_path` adds each async run's, those of
-   configurations 10-12 included, `by_shape` the timings at every
-   path's shape), then the result line.
+   configurations 10-12 included, configuration 15's select and the
+   restack select, `by_shape` the timings at every path's shape), then
+   the result line.
 
 Exits non-zero at the first failure, and when no CUDA device is present.
 TF32 is off for cuBLAS and cuDNN throughout, so every fp32 product is a
@@ -256,6 +286,7 @@ LONG_SHAPE = (1, 32, 8, 8192, 8192, 128)
 ZAMBA_ATTN_SHAPE = (4, 32, 32, 2048, 2048, 112)   # its shared attention
 SHARE_MAX = 1.05     # a kernel faster than its bound means a wrong bound
 SHARES = {}          # what -> share of bound, every one printed
+CARD = ""            # nvidia-smi's name and power limit, printed beside times
 SERVE = {"seeds": [0, 1], "batch": 4, "prompt_len": 2048,
          "gen_len": 16}                                    # a member a seed
 SERVES = [  # (arch, config overrides, the kernel package its prefill runs)
@@ -278,6 +309,30 @@ ASYNC_PAPER = {  # configuration 8's schedule (examples/async_decentralized)
 GOSSIP = {"n": 64, "mpc": 2, "capacity": 16, "V": 128, "C": 8,
           "world_seed": 17, "pop": 24, "gens": 8, "k": 5}  # configuration 9
 GOSSIP_GAP_MAX = 0.02   # bounded-vs-unbounded val-acc (examples/gossip_churn)
+FLEET_SPEC = "examples/specs/fleet_sweep.json"      # configuration 13
+# configuration 13 at its full size as the JAX package computes it on the
+# CPU (repro.sim.compiled); tests/test_torch_compiled.py re-derives these
+# from the reference's full-size run
+FLEET_FULL = {"t_full": 8.75, "n_ticks": 64, "net": {
+    "lost_offline": 0,
+    "transport": {"n_sent": 30547351, "n_delivered": 27494043,
+                  "n_dropped_link": 3053308, "n_dropped_inbox": 0,
+                  "bytes_sent": 124539704232,
+                  "bytes_delivered": 111838994088, "bytes_rejected": 0,
+                  "n_corrupt_detected": 0, "n_corrupt_admitted": 0},
+    "gossip": {"n_accepted": 4192256, "n_dedup": 23050004,
+               "n_suppressed": 0, "n_pull": 0},
+    "repair": {"n_digests_sent": 279888, "n_digests_recv": 251783,
+               "n_digests_lost": 0, "n_gaps_found": 4303451,
+               "n_resends": 905287, "n_budget_deferred": 3398164,
+               "n_inflight_skipped": 0, "n_attempts_exhausted": 0,
+               "n_quiesced": 21135, "bytes_digests": 564175784}}}
+FLEET_REPAIR = {"interval": 0.5, "start": 0.5, "max_rounds": 40}
+# configuration 14: benchmarks/run.py's full simloop tier; 14b its
+# deterministic tier at N = 128 (event loop == compiled backend)
+SIMLOOP_FULL = {"n": 10_000, "k": 8, "tick": 0.5, "chunk_ticks": 16}
+SIMLOOP_PARITY = {"n": 128, "k": 4, "tick": 0.05}
+COMPILED_CHUNK = 32   # configuration 15's chunk_ticks
 FITNESS_ASYNC_SHAPES = [(32, 100, 100), (64, 24, 16), (64, 24, 128)]
 PROBE_STEPS = 64      # local-training steps compared a family
 CHAOS = {  # configurations 10 and 11: the repo's spec files, full size
@@ -1374,6 +1429,347 @@ def fitness_path_phase(torch, shapes):
     print(f"fitness path shapes: the widest batches a configuration "
           f"{json.dumps(widest)}")
     return max_err, timings
+
+
+# ---- configurations 13-15: the compiled array world; the restack path ----
+
+
+def fleet_spec(smoke=False):
+    """Configuration 13: examples/specs/fleet_sweep.json at its full size,
+    or at its smoke size (its smoke_overrides: 256 clients)."""
+    from repro_torch.sim import ExperimentSpec
+    with open(ROOT / FLEET_SPEC) as f:
+        d = json.load(f)
+    overrides = d.pop("smoke_overrides")
+    if smoke:
+        d["data"]["n_clients"] = overrides["data.n_clients"]
+    return ExperimentSpec.from_dict(d)
+
+
+def simloop_spec(n, k, backend, params):
+    """benchmarks/run.py's simloop spec: a dissemination-only fleet on a
+    small world, ideal links (configurations 14 and 14b)."""
+    from repro_torch.sim import ExperimentSpec
+    return ExperimentSpec.from_dict({
+        "data": {"kind": "none", "n_clients": n, "models_per_client": 1},
+        "selection": {"enabled": False},
+        "network": {"topology": "small_world", "topology_k": k,
+                    "transport": {"name": "gossip",
+                                  "params": {"base_latency": 0.05,
+                                             "jitter": 0.0,
+                                             "drop_prob": 0.0}},
+                    "gossip": "push"},
+        "schedule": {"mode": "async", "select_during_run": False,
+                     "backend": {"name": backend, "params": params}},
+        "seed": 0})
+
+
+def compiled_world_spec():
+    """Configuration 15: configuration 9's prediction world and network
+    (no inbox cap, which the compiled backend refuses) with
+    fleet_sweep's repair, on the compiled backend, unbounded stores and
+    no selection during the run."""
+    d = gossip_spec(None, {"enabled": False}).to_dict()
+    d["network"]["transport"]["params"].pop("inbox_capacity")
+    d["network"]["repair"] = {"name": "anti_entropy",
+                              "params": dict(FLEET_REPAIR)}
+    d["schedule"].update(select_during_run=False, backend={
+        "name": "compiled", "params": {"chunk_ticks": COMPILED_CHUNK}})
+    from repro_torch.sim import ExperimentSpec
+    return ExperimentSpec.from_dict(d)
+
+
+def _chunk_profile(torch, fn, state, t0, k_lo, online, ticks):
+    """One chunk under torch.profiler: kernel launches (a tick and in
+    all), device busy seconds, wall seconds (profiler on) and the
+    largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.metrics import Stopwatch
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sw = Stopwatch().start()
+        out = fn(state, t0, k_lo, online)
+        torch.cuda.synchronize()
+        wall = sw.stop()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    n = sum(e.count for e in kernels)
+    top = [(e.key[:70], e.count, e.self_device_time_total / 1e3)
+           for e in sorted(kernels, key=lambda e: -e.self_device_time_total)
+           [:6]]
+    return out, {"launches": n, "per_tick": n / ticks, "busy_s": busy,
+                 "wall_s": wall, "busy_share": busy / wall, "top": top}
+
+
+def compiled_run(torch, spec, device, profile=False):
+    """One compiled-backend run through Experiment.run(): (result, what
+    simulate_compiled returned (have_tick included), wall s, peak device
+    bytes, the key blocks as {first key: width}, the profile of the first
+    chunk when asked). The profiled run's wall includes the profiler."""
+    from repro_torch.obs.metrics import Stopwatch
+    from repro_torch.sim import Experiment, compiled
+    raw, blocks, prof = [], {}, {}
+    inner_sim, inner_make = compiled.simulate_compiled, compiled._make_chunk_fn
+
+    def sim(*a, **kw):
+        raw.append(inner_sim(*a, **kw))
+        return raw[-1]
+
+    def make(W, chunk_ticks, Kb):
+        fn = inner_make(W, chunk_ticks, Kb)
+
+        def chunk(state, t0, k_lo, online):
+            blocks[k_lo] = Kb
+            if not profile or prof:
+                return fn(state, t0, k_lo, online)
+            out, p = _chunk_profile(torch, fn, state, t0, k_lo, online,
+                                    chunk_ticks)
+            prof.update(p)
+            return out
+        return chunk
+    exp = Experiment.from_spec(spec, device=device)
+    exp.build()
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    compiled.simulate_compiled, compiled._make_chunk_fn = sim, make
+    try:
+        sw = Stopwatch().start()
+        res = exp.run()
+        if cuda:
+            torch.cuda.synchronize()
+        wall = sw.stop()
+    finally:
+        compiled.simulate_compiled = inner_sim
+        compiled._make_chunk_fn = inner_make
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    return res, raw[0], wall, peak, blocks, prof
+
+
+def _compiled_line(what, res, wall, peak):
+    p = res.perf
+    mem = ("" if peak is None
+           else f", peak device memory {peak / 2**30:.6f} GiB")
+    return (f"{what} [{CARD}]: wall {wall:.6f} s (backend wall_s "
+            f"{p['wall_s']}, "
+            f"build_s {p['phases']['build_s']}, scan_s "
+            f"{p['phases']['scan_s']}), {p['n_ticks']} ticks, "
+            f"{p['ticks_per_s']} ticks/s; coverage {res.coverage}, t_full "
+            f"{res.t_full}{mem}")
+
+
+def _same_compiled(a, b, ra, rb):
+    """Which of have_tick, net, t_full, n_ticks two runs share bitwise."""
+    import numpy as np
+    return {"have_tick": bool(np.array_equal(a["have_tick"],
+                                             b["have_tick"])),
+            "net": ra.net == rb.net,
+            "t_full": ra.t_full == rb.t_full or (
+                math.isnan(ra.t_full) and math.isnan(rb.t_full)),
+            "n_ticks": a["n_ticks"] == b["n_ticks"]}
+
+
+def compiled_fleet_phase(torch):
+    """Configurations 13, 14 and 14b: the compiled array world on the
+    card at fleet_sweep's full and smoke sizes (the smoke size also on
+    the CPU), benchmarks/run.py's 10,000-client simloop tier, and the
+    deterministic tier against the port's event loop on the CPU."""
+    full = fleet_spec()
+    print("compiled config 13:", json.dumps(
+        {"spec": full.to_dict(), "reduced": {},
+         "runs": ["cuda full", "cuda full profiled", "cuda smoke",
+                  "cpu smoke"]}, allow_nan=False))
+    res, raw, wall, peak, _, _ = compiled_run(torch, full, "cuda")
+    print(_compiled_line("compiled config 13 (2048 clients, cuda)", res,
+                         wall, peak) + f"; net {json.dumps(res.net)}")
+    want = FLEET_FULL
+    same = {"net": res.net == want["net"],
+            "t_full": res.t_full == want["t_full"],
+            "n_ticks": raw["n_ticks"] == want["n_ticks"],
+            "coverage": res.coverage == 1.0}
+    print(f"compiled config 13: card == the JAX package's full-size run "
+          f"on the CPU (FLEET_FULL): {same}")
+    check(all(same.values()), f"compiled config 13: the card's full-size "
+                              f"run differs from the reference's: {same}")
+    res_p, _, _, _, _, prof = compiled_run(torch, full, "cuda",
+                                                profile=True)
+    print(f"compiled config 13 [{CARD}]: first chunk under torch.profiler: "
+          f"{prof['launches']} kernel launches ({prof['per_tick']:.6f} a "
+          f"tick), device busy {prof['busy_s']:.6f} s of {prof['wall_s']:.6f}"
+          f" s wall ({prof['busy_share']:.6f}); largest kernels "
+          f"{json.dumps(prof['top'])}")
+    check(res_p.net == res.net, "compiled config 13: the profiled run "
+                                "differs from the unprofiled one")
+    smoke = fleet_spec(smoke=True)
+    card, raw_c, wall_c, peak_c, _, _ = compiled_run(torch, smoke, "cuda")
+    cpu, raw_h, wall_h, _, _, _ = compiled_run(torch, smoke, "cpu")
+    print(_compiled_line("compiled config 13 smoke (256 clients, cuda)",
+                         card, wall_c, peak_c))
+    print(_compiled_line("compiled config 13 smoke (256 clients, cpu)", cpu,
+                         wall_h, None))
+    same = _same_compiled(raw_c, raw_h, card, cpu)
+    print(f"compiled config 13 smoke: card == CPU bitwise: {same}")
+    check(all(same.values()), f"compiled config 13 smoke: card and CPU "
+                              f"differ: {same}")
+    s = SIMLOOP_FULL
+    big = simloop_spec(s["n"], s["k"], "compiled",
+                       {"tick": s["tick"], "chunk_ticks": s["chunk_ticks"]})
+    print("compiled config 14:", json.dumps(
+        {"spec": big.to_dict(), "reduced": {}, "runs": ["cuda"]},
+        allow_nan=False))
+    res, raw, wall, peak, blocks, _ = compiled_run(torch, big, "cuda")
+    n = s["n"]
+    print(_compiled_line(f"compiled config 14 ({n} clients, cuda)", res,
+                         wall, peak) + f"; key blocks (first key: width) "
+          f"{blocks}; n_sent "
+          f"{res.net['transport']['n_sent']}, n_accepted "
+          f"{res.net['gossip']['n_accepted']}")
+    check(res.coverage == 1.0, f"compiled config 14: coverage "
+                               f"{res.coverage}")
+    check(res.net["gossip"]["n_accepted"] == n * (n - 1),
+          f"compiled config 14: n_accepted {res.net['gossip']['n_accepted']}"
+          f" != K (N - 1) = {n * (n - 1)}")
+    check(len(blocks) >= 2 and sum(blocks.values()) == n,
+          f"compiled config 14: key blocks {blocks} do not shard the "
+          f"{n} keys")
+    p = SIMLOOP_PARITY
+    ev_spec = simloop_spec(p["n"], p["k"], "event", {})
+    co_spec = simloop_spec(p["n"], p["k"], "compiled", {"tick": p["tick"]})
+    from repro_torch.obs.metrics import Stopwatch
+    from repro_torch.sim import Experiment
+    sw = Stopwatch().start()
+    ev = Experiment.from_spec(ev_spec, device="cpu").run()
+    wall_ev = sw.stop()
+    co, _, wall_co, _, _, _ = compiled_run(torch, co_spec, "cuda")
+    print(f"compiled config 14b [{CARD}] ({p['n']} clients, k = "
+          f"{p['k']}, tick {p['tick']}): event loop on the CPU {wall_ev:.6f} s, compiled "
+          f"on the card {wall_co:.6f} s; net equal: {ev.net == co.net}; "
+          f"t_full {ev.t_full} and {co.t_full}")
+    check(ev.net == co.net, "compiled config 14b: the deterministic tier's "
+                            "net dicts differ")
+    check(abs(ev.t_full - co.t_full) <= p["tick"] + 1e-9,
+          "compiled config 14b: t_full differs by more than a tick")
+
+
+def _val_acc(results):
+    import numpy as np
+    return float(np.mean([float(r["val_accuracy"]) for r in
+                          results.values()]))
+
+
+def compiled_world_phase(torch, shapes):
+    """Configuration 15: the prediction world through the compiled backend
+    on the card and on the CPU, then one select() over every client."""
+    import numpy as np
+
+    from repro_torch.kernels.ensemble_fitness import kernel
+    from repro_torch.obs.metrics import Stopwatch
+    spec = compiled_world_spec()
+    g = GOSSIP
+    print("compiled config 15:", json.dumps(
+        {"spec": spec.to_dict(), "reduced": {}, "runs": ["cuda", "cpu"]},
+        allow_nan=False))
+    runs = {}
+    for device in ("cuda", "cpu"):
+        res, raw, wall, peak, _, _ = compiled_run(torch, spec, device)
+        print(_compiled_line(f"compiled config 15 ({device})", res, wall,
+                             peak) + f"; net {json.dumps(res.net)}")
+        runs[device] = (res, raw)
+    (card, raw_c), (cpu, raw_h) = runs["cuda"], runs["cpu"]
+    same = _same_compiled(raw_c, raw_h, card, cpu)
+    same["stores"] = all(
+        [e and e.model_id for e in a.entries]
+        == [e and e.model_id for e in b.entries]
+        and np.array_equal(a.preds, b.preds)
+        for a, b in zip(card.stores, cpu.stores))
+    print(f"compiled config 15: card == CPU: {same}")
+    check(all(same.values()), f"compiled config 15: card and CPU differ: "
+                              f"{same}")
+    picked = {}
+    for device, res in (("cuda", card), ("cpu", cpu)):
+        kernel.KERNEL.launches = 0
+        sw = Stopwatch().start()
+        with recorded_fitness_shapes(shapes if device == "cuda" else set()):
+            picked[device] = res.engine.select()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        sel_s = sw.stop()
+        if device == "cuda":
+            launches = kernel.KERNEL.launches
+        sizes = {int(r["chromosome"].sum()) for r in picked[device].values()}
+        print(f"compiled config 15 [{CARD}]: select() over "
+              f"{len(picked[device])} "
+              f"clients on the {device}: {sel_s:.6f} s, chromosome sizes "
+              f"{sorted(sizes)}, fleet-mean val acc "
+              f"{_val_acc(picked[device]):.6f}")
+        check(sorted(picked[device]) == list(range(g["n"])) and
+              sizes == {g["k"]}, f"compiled config 15: the {device} select "
+                                 f"did not pick k members for every client")
+    per = 2 * g["gens"] + 1
+    gap = abs(_val_acc(picked["cuda"]) - _val_acc(picked["cpu"]))
+    print(f"compiled config 15: fitness launches {launches} (expected "
+          f"{per}); card-vs-CPU fleet-mean val-acc gap {gap:.6f} (limit "
+          f"{GOSSIP_GAP_MAX})")
+    check(launches == per, f"compiled config 15: ensemble_fitness launched "
+                           f"{launches} times, expected {per}")
+    check(gap <= GOSSIP_GAP_MAX, f"compiled config 15: card and CPU "
+                                 f"selections differ by {gap} val-acc")
+    return {"launches": launches, "perf": card.perf}
+
+
+def restack_phase(torch, sync_res, shapes):
+    """One select() of the sync slice's fleet on the restack path and one
+    on the resident path, on the card, in turns (restack, resident,
+    resident, restack)."""
+    from repro_torch.core.engine import SelectionEngine
+    from repro_torch.kernels.ensemble_fitness import kernel
+    from repro_torch.obs.metrics import Stopwatch
+    eng = sync_res.engine
+    engines = {resident: SelectionEngine(
+        sync_res.stores, eng.nsga, seed=eng.seed, ensemble_k=eng.ensemble_k,
+        device_resident=resident, device="cuda")
+        for resident in (False, True)}
+    check(engines[False].store_batch is None, "restack: the engine kept a "
+                                              "device mirror")
+    engines[True].select()       # the resident mirror's first flush
+    times, launches, picked = {False: [], True: []}, {}, {}
+    for resident in (False, True, True, False):
+        kernel.KERNEL.launches = 0
+        torch.cuda.synchronize()
+        sw = Stopwatch().start()
+        with recorded_fitness_shapes(shapes):
+            picked[resident] = engines[resident].select()
+        torch.cuda.synchronize()
+        times[resident].append(sw.stop())
+        launches[resident] = kernel.KERNEL.launches
+    per = 2 * eng.nsga.generations + 1
+    k = eng.ensemble_k
+    same = sum(bool((picked[True][c]["chromosome"]
+                     == picked[False][c]["chromosome"]).all())
+               for c in picked[True])
+    gap = abs(_val_acc(picked[True]) - _val_acc(picked[False]))
+    sizes = {int(r["chromosome"].sum()) for p in picked.values()
+             for r in p.values()}
+    print(f"restack [{CARD}]: select() of the sync slice's "
+          f"{len(picked[True])} "
+          f"clients: restack {times[False]} s, resident {times[True]} s; "
+          f"fitness launches restack {launches[False]}, resident "
+          f"{launches[True]} (expected {per}); chromosomes equal for "
+          f"{same} clients, by outcome: sizes {sorted(sizes)}, fleet-mean "
+          f"val acc {_val_acc(picked[False]):.6f} and "
+          f"{_val_acc(picked[True]):.6f} (gap {gap:.6f}, limit "
+          f"{GOSSIP_GAP_MAX})")
+    check(launches[False] == per and launches[True] == per,
+          f"restack: ensemble_fitness launched {launches}, expected {per}")
+    check(sizes == {k} and gap <= GOSSIP_GAP_MAX,
+          f"restack: the two paths' selections differ in outcome: sizes "
+          f"{sizes}, gap {gap}")
+    return {"launches": launches[False], "restack_s": times[False],
+            "resident_s": times[True]}
 
 
 def attention_bound(B, H, KV, Sq, Sk, hd, causal=True, window=0,
@@ -2665,7 +3061,9 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.wkv_scan import kernel as wkv_kernel
 
-    print(nvidia_smi("name,power.limit"))
+    global CARD
+    CARD = nvidia_smi("name,power.limit")
+    print(CARD)
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; device "
           f"{name!r}, count {count}")
@@ -2687,14 +3085,19 @@ def main() -> int:
     sync_repeat_phase(torch, sync_res)
     paper_async = async_paper_phase(torch, sync_exp, sync_res)
     serve_paper = serve_paper_phase(torch, sync_exp, sync_res)
+    restack_shapes, world_shapes = set(), set()
+    restack = restack_phase(torch, sync_res, restack_shapes)
     del sync_exp, sync_res
     gossip = gossip_churn_phase(torch)
     faults = faults_phase(torch)
     serve_drift = serve_drift_phase(torch)
+    compiled_fleet_phase(torch)
+    world = compiled_world_phase(torch, world_shapes)
     path_err, path_timings = fitness_path_phase(torch, {
         "async config 10": faults["shapes"],
         "async config 11": serve_drift.pop("shapes"),
-        "async config 12": serve_paper["shapes"]})
+        "async config 12": serve_paper["shapes"],
+        "compiled config 15": world_shapes, "restack": restack_shapes})
     max_err = max(max_err, path_err)
     timings.update({("batched",) + k: v for k, v in path_timings.items()})
     torch.cuda.empty_cache()
@@ -2731,7 +3134,9 @@ def main() -> int:
             "async config 10": faults["launches"],
             **{f"async config 11 {k}": v["launches"]
                for k, v in serve_drift.items()},
-            "async config 12": serve_paper["launches"]},
+            "async config 12": serve_paper["launches"],
+            "compiled config 15": world["launches"],
+            "restack": restack["launches"]},
         "by_shape": {str(shape): dict(zip(
             ("ms", "plain_ms", "bound_ms", "bound_by"),
             timings[("batched",) + shape]))

@@ -183,6 +183,22 @@ class PredictionStore:
     def is_local(self) -> np.ndarray:
         return self.owners == self.client
 
+    def val_predictions(self, x_val: Optional[np.ndarray] = None
+                        ) -> np.ndarray:
+        """(capacity, V, C) — the stored validation-set matrices (empty
+        slots are zero). `x_val` is accepted for API compatibility but
+        must BE the validation set; use `predictions` for other data."""
+        if x_val is not None and len(x_val) != self.n_val:
+            raise ValueError(
+                "val_predictions serves the stored validation set; "
+                "use predictions(x) for other data")
+        return self.preds[:, :self.n_val]
+
+    def padded(self):
+        """(preds (capacity, V_pad, C), labels (V_pad,), mask (capacity,))
+        — the view the selection engine stacks."""
+        return self.preds, self.labels, self.mask
+
     def predictions(self, x: np.ndarray, mask: Optional[np.ndarray] = None) -> np.ndarray:
         """(capacity, N, C) on arbitrary data; with `mask`, only selected
         PRESENT members are evaluated (the 'download only what you need'

@@ -148,6 +148,25 @@ class DeviceStoreBatch:
                            | set(store.dirty_seq))
         self._cursor.append(store._dirty_clock)
 
+    def append_store(self, store) -> None:
+        """Grow the fleet by one client (churn join). The device buffers
+        are reallocated with one extra row; the newcomer's slots flush on
+        the next `flush()`."""
+        row = np.full((self.v_max,), -1, np.int32)
+        self._attach(store, row)
+        dev = self.device
+        self.labels = torch.cat([self.labels,
+                                 torch.as_tensor(row, device=dev)[None]])
+        self.nv = torch.cat([self.nv, torch.tensor(
+            [float(max(int((row >= 0).sum()), 1))], device=dev)])
+
+        def grow(a):
+            return torch.cat([a, a.new_zeros((1,) + a.shape[1:])])
+        self.preds, self.pnorm = grow(self.preds), grow(self.pnorm)
+        self.masks, self.S = grow(self.masks), grow(self.S)
+        self.acc = torch.cat([self.acc, torch.full(
+            (1, self.capacity), float(_zero_row_acc(row)), device=dev)])
+
     def refresh_labels(self, client: int) -> None:
         """A store's validation set was replaced in place
         (`PredictionStore.refresh_validation`): re-upload its label row

@@ -9,8 +9,11 @@ scatters that touch only the changed rows, gathers the requested client
 batch on the device, and answers with one batched NSGA-II run over the
 CACHED statistics: per-client random streams, per-client model-slot
 masks and one call of the batched ensemble_fitness wrapper per
-objective evaluation (the CUDA kernel on the card). The reference's
-legacy restack path (`device_resident=False`) is not ported.
+objective evaluation (the CUDA kernel on the card). With
+`device_resident=False` the reference's legacy restack path is kept for
+benchmarking: every select re-stacks the requested stores on the host
+(`stack_stores`) and re-derives the statistics from scratch
+(`select_ensembles`); `store_batch` is then None.
 
 Client batches are padded to the next power of two by repeating the
 first client, as in the reference, so every batch of a run has one of
@@ -31,10 +34,12 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.bench import stack_stores
 from repro_torch.core.device_store import DeviceStoreBatch
 from repro_torch.core.device_store import _pow2 as _pow2_pad
 from repro_torch.core.nsga2 import NSGAConfig, client_keys
 from repro_torch.core.selection import (local_only_chromosome,
+                                        select_ensembles,
                                         select_ensembles_from_stats)
 from repro_torch.device import resolve_device
 from repro_torch.obs.metrics import NULL_METRICS
@@ -46,6 +51,7 @@ class SelectionEngine:
 
     def __init__(self, stores, nsga: NSGAConfig, seed: int = 0,
                  ensemble_k: Optional[int] = None,
+                 device_resident: bool = True,
                  v_max: Optional[int] = None, metrics=None, device=None):
         self.stores = list(stores)
         self.nsga = nsga
@@ -53,15 +59,19 @@ class SelectionEngine:
         self.device = resolve_device(device)
         self.ensemble_k = ensemble_k if ensemble_k is not None else max(nsga.k, 1)
         # pin the validation pad width globally: every batch, whatever its
-        # membership, has the same (B, M, V, C) shape family
+        # membership, has the same (B, M, V, C) shape family. `v_max`
+        # provisions for clients that JOIN LATER with a wider validation
+        # set — without it, a wider late joiner is rejected (never
+        # silently truncated) by `add_store`/`select`.
         widest = max(s.v_pad for s in self.stores)
         if v_max is not None and v_max < widest:
             raise ValueError(
                 f"engine v_max={v_max} narrower than an attached store's "
                 f"v_pad={widest}")
         self._v_max = widest if v_max is None else v_max
-        self.store_batch = DeviceStoreBatch(self.stores, self.device,
-                                            v_max=self._v_max)
+        self.store_batch = (DeviceStoreBatch(self.stores, self.device,
+                                             v_max=self._v_max)
+                            if device_resident else None)
         self.metrics = metrics if metrics is not None else NULL_METRICS
         self.results: Dict[int, dict] = {}   # client -> last selection dict
         self._keys_cache: Dict[tuple, list] = {}  # batch -> stream seeds
@@ -72,7 +82,19 @@ class SelectionEngine:
             raise ValueError(
                 f"store v_pad={store.v_pad} exceeds the engine-wide pad "
                 f"v_max={self._v_max}; construct the engine with "
-                "v_max=<widest validation pad that can ever join>")
+                "v_max=<widest validation pad that can ever join> "
+                "(a wider batch would silently truncate this client's "
+                "validation set)")
+
+    def add_store(self, store) -> int:
+        """A client joining mid-run (churn): validate against the pinned
+        engine-wide pad and mirror it into the device batch. Returns the
+        new client index."""
+        self._check_width(store)
+        self.stores.append(store)
+        if self.store_batch is not None:
+            self.store_batch.append_store(store)
+        return len(self.stores) - 1
 
     def min_models(self) -> int:
         """A client is selectable once it can fill an ensemble."""
@@ -102,29 +124,45 @@ class SelectionEngine:
                 self._keys_cache.clear()
             keys = client_keys(self.seed, batch)
             self._keys_cache[tuple(batch)] = keys
-        # scatter only the dirty rows, then gather the batch and its
-        # cached stats on the device; a whole-fleet batch in natural
-        # order reads the resident buffers directly
-        if mx.enabled:
-            with mx.stopwatch("engine.flush_wall_s")(t=t):
-                n_dirty = self.store_batch.flush()
-            mx.observe("engine.flush_dirty_slots", n_dirty, t=t)
-        else:
-            self.store_batch.flush()
+        sb = self.store_batch
+        if sb is not None:
+            # scatter only the dirty rows, then gather the batch and its
+            # cached stats on the device; a whole-fleet batch in natural
+            # order reads the resident buffers directly
+            if len(sb.stores) != len(self.stores):
+                raise RuntimeError(
+                    "engine.stores grew without the device mirror — "
+                    "admit late joiners through engine.add_store()")
+            if mx.enabled:
+                with mx.stopwatch("engine.flush_wall_s")(t=t):
+                    n_dirty = sb.flush()
+                mx.observe("engine.flush_dirty_slots", n_dirty, t=t)
+            else:
+                sb.flush()
         if self.replay is not None:
             picked = self.replay(ready, t)
             rows = [{k: np.asarray(v) for k, v in picked[c].items()}
                     for c in ready]
         else:
-            sb = self.store_batch
-            if batch == list(range(len(self.stores))):
-                preds, labels, masks, acc, S = (sb.preds, sb.labels,
-                                                sb.masks, sb.acc, sb.S)
+            if sb is None:
+                # legacy restack path: re-stack + re-derive everything
+                preds, labels, masks = stack_stores(self.stores, batch,
+                                                    v_to=self._v_max)
+                dev = self.device
+                out = select_ensembles(
+                    torch.as_tensor(preds, device=dev),
+                    torch.as_tensor(labels, device=dev), self.nsga,
+                    keys=keys, model_mask=torch.as_tensor(masks,
+                                                          device=dev))
             else:
-                preds, labels, masks, acc, S = sb.gather(batch)
-            out = select_ensembles_from_stats(acc, S, preds, labels,
-                                              self.nsga, keys=keys,
-                                              model_mask=masks)
+                if batch == list(range(len(self.stores))):
+                    preds, labels, masks, acc, S = (sb.preds, sb.labels,
+                                                    sb.masks, sb.acc, sb.S)
+                else:
+                    preds, labels, masks, acc, S = sb.gather(batch)
+                out = select_ensembles_from_stats(acc, S, preds, labels,
+                                                  self.nsga, keys=keys,
+                                                  model_mask=masks)
             # ONE device->host transfer per result key
             host = {k: v.cpu().numpy() for k, v in out.items()}
             rows = [{k: v[i] for k, v in host.items()}
@@ -148,7 +186,8 @@ class SelectionEngine:
         store = self.stores[c]
         self._check_width(store)
         store.refresh_validation(x_val, y_val, preds)
-        self.store_batch.refresh_labels(c)
+        if self.store_batch is not None:
+            self.store_batch.refresh_labels(c)
 
     @staticmethod
     def _stale(store, res, chrom: np.ndarray) -> bool:

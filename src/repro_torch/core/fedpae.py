@@ -49,6 +49,8 @@ class FedPAEConfig:
     width: int = 16
     store_capacity: Optional[int] = None  # bounded streaming stores (§6);
                                           # None = one slot per global model
+    device_resident: bool = True   # incremental DeviceStoreBatch path (§7);
+                                   # False = legacy host restack per select
     seed: int = 0
 
 

@@ -12,8 +12,8 @@ loop and the p2p layers at their probe sites.
 
 The fault, admission and serving layers' counters (`faults.*`,
 `admission.*`, `serve.*`, `transport.corrupt`) come from the same dict's
-`faults`, `admission` and `serve` sections. The compiled backend's chunk
-sampler waits for that backend (ROADMAP.md queue 1 item 5).
+`faults`, `admission` and `serve` sections. The compiled backend emits
+the same live series host-side, once a chunk (`CompiledProbe`).
 
 Stock sinks (registered by `repro_torch.sim.build` under kind "sink"):
 
@@ -167,6 +167,63 @@ def finalize_run(obs: Obs, result) -> None:
         "seed": result.spec.seed, "mode": result.mode,
         "backend": backend,
         "n_clients": result.spec.data.n_clients})
+
+
+# ---- compiled-backend chunk sampling -----------------------------------
+
+
+class CompiledProbe:
+    """Per-chunk series emission for the array-world backend: the host
+    loop hands over the (tiny) counter dicts it pulled off the device at
+    each chunk boundary; deltas against the previous snapshot become
+    cumulative-series samples with the SAME names the event loop's live
+    probes use. The tick loop itself is untouched.
+
+    Multi-key-block caveat: blocks run sequentially over restarting time
+    axes, so series samples are recorded for the FIRST block only (the
+    single-block case covers every repair run and the whole parity
+    tier); scalar totals accumulate across all blocks and stay exact.
+    """
+
+    def __init__(self, mx: Metrics, nbytes: int):
+        self.mx = mx
+        self.nb = int(nbytes)
+        self._prev = {}
+        self._block = 0
+
+    def start_block(self, block_idx: int, init_sent: int,
+                    init_bytes: int) -> None:
+        self._block = block_idx
+        self._prev = {}
+        t0 = 0.0 if block_idx == 0 else None
+        if init_sent:
+            self.mx.inc("net.msgs_on_wire", init_sent, t=t0)
+            self.mx.inc("net.bytes_on_wire", init_bytes, t=t0)
+
+    def sample(self, t: float, cnt: dict, rc: Optional[dict],
+               covered: int, total: int) -> None:
+        """One chunk boundary: `cnt`/`rc` are this block's cumulative
+        on-device counters (host ints), `covered`/`total` the block's
+        admitted and possible (client, key) pairs."""
+        t_s = t if self._block == 0 else None
+        sent = int(cnt["sent"]) + (int(rc["dig_sent"]) if rc else 0)
+        nbytes = int(cnt["sent"]) * self.nb \
+            + (int(rc["dig_bytes"]) if rc else 0)
+        acc = int(cnt["acc"])
+        for name, cum in (("net.msgs_on_wire", sent),
+                          ("net.bytes_on_wire", nbytes),
+                          ("gossip.accepted", acc)):
+            d = cum - self._prev.get(name, 0)
+            if d:
+                self.mx.inc(name, d, t=t_s)
+            self._prev[name] = cum
+        if rc is not None:
+            d = int(rc["dig_sent"]) - self._prev.get("dig", 0)
+            if d:
+                self.mx.inc("repair.digests_on_wire", d, t=t_s)
+            self._prev["dig"] = int(rc["dig_sent"])
+        if self._block == 0 and total:
+            self.mx.set("coverage.fraction", covered / total, t=t_s)
 
 
 # ---- stock sinks (registered by repro_torch.sim.build, kind "sink") ----

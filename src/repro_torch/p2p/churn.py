@@ -82,3 +82,37 @@ class ChurnSchedule:
     def departed(self, c: int, t: float) -> bool:
         """Has client c permanently left the network by time t?"""
         return t >= self.leave[c]
+
+    # ---- array-world constructors (sim/compiled.py) -------------------
+    def leave_ticks(self, tick: float) -> np.ndarray:
+        """(N,) int32 first tick index at which each client counts as
+        departed (`t >= leave` on the tick grid); INT32_MAX for never."""
+        out = np.full(self.n_clients, np.iinfo(np.int32).max, np.int64)
+        finite = np.isfinite(self.leave)
+        out[finite] = np.ceil(self.leave[finite] / tick - 1e-9).astype(
+            np.int64)
+        return np.minimum(out, np.iinfo(np.int32).max).astype(np.int32)
+
+    def online_matrix(self, t0_tick: int, n_ticks: int,
+                      tick: float) -> np.ndarray:
+        """(n_ticks, N) bool: `is_online(c, t)` evaluated at every tick
+        time in [t0_tick, t0_tick + n_ticks) — the SAME join/leave edges
+        and the SAME per-(client, window) coin streams as the scalar
+        method, so the compiled backend's availability is the event
+        loop's availability sampled on the tick grid."""
+        ts = (np.arange(t0_tick, t0_tick + n_ticks) * tick)
+        out = (ts[:, None] >= self.join[None, :]) & \
+              (ts[:, None] < self.leave[None, :])
+        flappy = np.flatnonzero(self.p_online < 1.0)
+        if flappy.size:
+            wins = np.floor(ts / self.cfg.window).astype(np.int64)
+            uniq = np.unique(wins)
+            coins = np.empty((uniq.size, flappy.size))
+            for i, w in enumerate(uniq):
+                for j, c in enumerate(flappy):
+                    coins[i, j] = np.random.default_rng(
+                        (_CHURN_SALT, self.cfg.seed, 1, int(c),
+                         int(w))).random()
+            on = coins < self.p_online[flappy][None, :]
+            out[:, flappy] &= on[np.searchsorted(uniq, wins), :]
+        return out

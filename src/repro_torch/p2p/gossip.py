@@ -178,6 +178,31 @@ class GossipProtocol:
         repair."""
         self.peer_has[src].setdefault(dst, set()).discard(key)
 
+    # ---- array-world constructors (sim/compiled.py) -------------------
+    def array_state(self) -> dict:
+        """Dense overlay arrays for the compiled backend: a (N, deg_max)
+        int32 adjacency padded with -1. Only the stateless push epidemic
+        is expressible as whole-fleet array transitions — push_pull's
+        reverse reconciliation and fanout subsampling keep per-pair set
+        state the array world does not carry, so they fail loudly here
+        instead of silently simulating a different protocol."""
+        if self.cfg.mode != "push":
+            raise ValueError(
+                f"the compiled backend supports gossip mode 'push' only "
+                f"(got {self.cfg.mode!r}); use backend='event' for "
+                f"push_pull")
+        if self.cfg.fanout:
+            raise ValueError(
+                "the compiled backend does not support gossip fanout "
+                f"subsampling (got fanout={self.cfg.fanout}); use "
+                "backend='event'")
+        n = len(self.neighbors)
+        deg_max = max((len(nb) for nb in self.neighbors), default=0)
+        adj = np.full((n, deg_max), -1, np.int32)
+        for c, nb in enumerate(self.neighbors):
+            adj[c, :len(nb)] = nb
+        return {"adj": adj, "deg_max": deg_max}
+
     # ---- protocol events ---------------------------------------------
     def on_local(self, c: int, key: ModelKey, t: float,
                  version: Optional[int] = None

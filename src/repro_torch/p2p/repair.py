@@ -268,6 +268,33 @@ class AntiEntropyRepair:
         akey = (src, dst, key, version)
         self.attempts[akey] = max(0, self.attempts.get(akey, 1) - 1)
 
+    # ---- array-world constructors (sim/compiled.py) -------------------
+    def array_state(self, tick: float) -> dict:
+        """Per-directed-edge arrays for the compiled backend: edge
+        endpoint vectors, the reverse-edge index map (for the wants ->
+        re-arm path), and the config quantized onto the tick grid.
+        Interval and start are rounded to whole ticks (>= 1), which is
+        part of the tick-quantization contract (DESIGN.md §10)."""
+        e_src = np.array([a for a, _ in self.edges], np.int32)
+        e_dst = np.array([b for _, b in self.edges], np.int32)
+        idx = {e: i for i, e in enumerate(self.edges)}
+        rev = np.array([idx.get((b, a), -1) for a, b in self.edges],
+                       np.int32)
+        return {
+            "e_src": e_src, "e_dst": e_dst, "rev": rev,
+            "n_edges": len(self.edges),
+            "interval_ticks": max(1, round(self.cfg.interval / tick)),
+            "start_tick": max(1, round(self.cfg.start / tick)),
+            "max_rounds": int(self.cfg.max_rounds),
+            "quiesce_after": int(self.cfg.quiesce_after),
+            "max_attempts": int(self.cfg.max_attempts),
+            "budget": int(self.cfg.max_resends_per_digest),
+            "backoff_base": float(self.cfg.backoff_base),
+            "backoff_factor": float(self.cfg.backoff_factor),
+            "bytes_per_entry": int(self.cfg.bytes_per_entry),
+            "seed": int(self.cfg.seed),
+        }
+
     def wake(self, c: int, t: float) -> List[int]:
         """Client c admitted a new model: reset its outgoing edges' calm
         counters and return the destinations whose (ended) digest streams

@@ -182,6 +182,34 @@ class GossipTransport:
         self.last_outcome = "ok"
         return t + lat
 
+    # ---- array-world constructors (sim/compiled.py) -------------------
+    def array_params(self) -> dict:
+        """Scalar link parameters for the compiled backend, with the two
+        features the array world cannot honor rejected loudly: bounded
+        inboxes (rejection depends on within-tick send order) and
+        per-(src, dst, key) message sizes (the dense step prices every
+        model message with ONE constant, which both stock sizers
+        satisfy)."""
+        if self.cfg.inbox_capacity:
+            raise ValueError(
+                "the compiled backend does not support bounded inboxes "
+                f"(got inbox_capacity={self.cfg.inbox_capacity}): "
+                "within-tick rejection order is event-granular; use "
+                "backend='event'")
+        probes = {int(self.size_fn(s, d, (o, m)))
+                  for s, d, o, m in ((0, 0, 0, 0), (1, 0, 2, 1),
+                                     (0, 1, 1, 0))}
+        if len(probes) != 1:
+            raise ValueError(
+                "the compiled backend needs a constant-size message "
+                f"sizer (probed sizes: {sorted(probes)}); use "
+                "backend='event' for per-edge pricing")
+        return {"base_latency": float(self.cfg.base_latency),
+                "jitter": float(self.cfg.jitter),
+                "bandwidth": float(self.cfg.bandwidth),
+                "drop_prob": float(self.cfg.drop_prob),
+                "nbytes": probes.pop(), "seed": int(self.cfg.seed)}
+
     def deliver(self, src: int, dst: int, key: ModelKey,
                 lost: bool = False, nbytes: Optional[int] = None,
                 t: Optional[float] = None) -> None:

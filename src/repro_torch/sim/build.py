@@ -9,9 +9,8 @@ Importing this module registers the stock components:
   repair:     "anti_entropy"              (p2p.AntiEntropyRepair)
   train_cost: "affine", "constant"        (virtual training durations)
   sizer:      "prediction_matrix", "checkpoint"  (transport pricing)
-  backend:    "event"                     (fl.scheduler.simulate_async);
-              "compiled" is registered and raises: the array world is
-              not ported yet (ROADMAP.md queue 1)
+  backend:    "event"                     (fl.scheduler.simulate_async),
+              "compiled"                  (sim.compiled.run_compiled)
   sink:       "metrics_json", "perfetto"  (obs.probes)
   fault:      "byzantine", "corruption", "crash_restart", "partition"
                                           (faults.injectors)
@@ -149,14 +148,17 @@ def _backend_event(params: dict, ctx: dict):
 
 @register("backend", "compiled")
 def _backend_compiled(params: dict, ctx: dict):
-    """The reference's tick-stepped array world (`repro/sim/compiled.py`)
-    is not ported yet: its params are checked, then the build refuses."""
+    """The tick-stepped array world (sim.compiled) for 10k-100k-client
+    dissemination studies, on the experiment's device; `tick` defaults
+    to the transport base latency (1-tick hops)."""
     check_params(params, ("tick", "chunk_ticks", "max_ticks",
                           "key_block"), "backend[compiled]")
-    raise NotImplementedError(
-        "schedule.backend='compiled' (the array-world simulator) is not "
-        "ported to repro_torch yet (ROADMAP.md queue 1 item 5); use "
-        "backend='event'")
+    kw = {k: params[k] for k in params}
+
+    def run(exp):
+        from repro_torch.sim.compiled import run_compiled
+        return run_compiled(exp, **kw)
+    return run
 
 
 # ---- fault injectors + admission (DESIGN.md §12) ----------------------

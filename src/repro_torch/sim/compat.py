@@ -37,6 +37,7 @@ def spec_from_fedpae(cfg, *, n_clients: int, n_classes: int,
             pop_size=nsga.pop_size, generations=nsga.generations,
             k=nsga.k, p_mut=nsga.p_mut, p_cross=nsga.p_cross,
             ensemble_k=cfg.ensemble_k,
+            device_resident=cfg.device_resident,
             store_capacity=cfg.store_capacity),
         network=NetworkSpec(topology=cfg.topology),
         schedule=sched,
@@ -56,4 +57,5 @@ def fedpae_config(spec: ExperimentSpec):
         lr=tr.lr, batch=tr.batch, max_epochs=tr.max_epochs,
         patience=tr.patience, width=tr.width,
         store_capacity=sel.store_capacity,
+        device_resident=sel.device_resident,
         seed=spec.seed)

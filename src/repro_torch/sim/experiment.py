@@ -9,11 +9,15 @@ p2p stack an `ExperimentSpec` describes and dispatches on
            batched selection over every client and serve each client's
            test set with its selected ensemble (image worlds);
   async  — the virtual-clock event loop (`fl/scheduler.py`, backend
-           "event"): arrivals incrementally materialize the stores (one
-           forward per arrival in an image world, a shipped matrix in a
-           prediction world), and every debounced select tick runs one
-           batched re-selection of the ready clients over whatever p2p
-           stack (transport, gossip, churn, repair) the spec declares;
+           "event") or the tick-stepped array world (`sim/compiled.py`,
+           backend "compiled": dissemination only, on the device, its
+           admits filling a prediction world's stores after the run).
+           On the event loop, arrivals incrementally materialize the
+           stores (one forward per arrival in an image world, a shipped
+           matrix in a prediction world), and every debounced select
+           tick runs one batched re-selection of the ready clients over
+           whatever p2p stack (transport, gossip, churn, repair) the
+           spec declares;
            bounded streaming stores and observability (metrics, trace,
            sinks) included. Data kinds: synthetic_images, external,
            prediction_world, none. The faults section adds crash,
@@ -24,11 +28,10 @@ p2p stack an `ExperimentSpec` describes and dispatches on
 
 It runs on the CUDA device unless `device="cpu"` is passed. Selection
 always scores through the ensemble_fitness wrapper (the CUDA kernel on
-the card), so `selection.use_kernel` is parsed and has no effect. Still
-refused with NotImplementedError (ROADMAP.md queue 1): the compiled
-backend (item 5) and the restack selection path
-(`selection.device_resident=False`). Otherwise `build()` raises the
-reference's errors for the reference's misconfigurations.
+the card), so `selection.use_kernel` is parsed and has no effect.
+`build()` raises the reference's errors for the reference's
+misconfigurations, and the compiled backend's run the reference's
+refusals (image worlds, in-loop selection, faults, admission, serving).
 
 Keyword overrides inject pre-built collaborators (the compatibility
 shims' path): anything injected is used as-is, anything absent is built
@@ -59,11 +62,6 @@ from repro_torch.sim.registry import build as build_component
 from repro_torch.sim.spec import ExperimentSpec
 
 _IMAGE_KINDS = ("synthetic_images", "external")
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md queue 1)")
 
 
 @dataclasses.dataclass
@@ -183,7 +181,7 @@ class Experiment:
     # ---- staged construction ------------------------------------------
     def _check_spec(self) -> None:
         """The reference's configuration errors (same words), then the
-        parts of the spec this port refuses by name."""
+        async backend's build."""
         spec = self.spec
         data = spec.data
         sync = spec.schedule.mode == "sync"
@@ -239,10 +237,7 @@ class Experiment:
                     'switch to schedule.mode="async" or drop them '
                     "(silently ignoring them would report a lossless "
                     "run as if the declared network had been simulated)")
-        if not spec.selection.device_resident:
-            raise _not_ported("the restack selection path "
-                              "(selection.device_resident=False)")
-        if not sync:  # the compiled backend's builder raises here
+        if not sync:
             self._runner = build_component(
                 "backend", spec.schedule.backend,
                 {"spec": spec, "seed": spec.seed,
@@ -305,6 +300,7 @@ class Experiment:
                 seed=sel.seed if sel.seed is not None else spec.seed,
                 ensemble_k=(sel.ensemble_k if sel.ensemble_k is not None
                             else sel.k),
+                device_resident=sel.device_resident,
                 metrics=self.obs.metrics if self.obs is not None
                 else None, device=self.device)
         if not sync:

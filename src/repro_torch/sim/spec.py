@@ -2,9 +2,7 @@
 (port of `repro/sim/spec.py`).
 
 Every section parses and round-trips exactly as in the reference, so one
-spec file drives either package; `repro_torch.sim.Experiment` rejects by
-name the two paths not ported yet: the compiled backend (ROADMAP.md
-queue 1 item 5) and the restack selection path.
+spec file drives either package.
 
 `ExperimentSpec` is the single entry point's input (DESIGN.md §9): a
 nested, dict/JSON-round-trippable, seed-complete description of a FedPAE
@@ -158,7 +156,7 @@ class SelectionSpec:
     p_cross: float = 0.9
     ensemble_k: Optional[int] = None      # None -> k
     use_kernel: bool = False     # parsed for round-trips; no effect here
-    device_resident: bool = True  # False (restack path) is not ported
+    device_resident: bool = True  # False = legacy host restack per select
     store_capacity: Optional[int] = None  # bounded streaming stores (§6)
     seed: Optional[int] = None            # None -> ExperimentSpec.seed
 

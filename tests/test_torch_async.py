@@ -415,6 +415,8 @@ SYNC_IMAGES = {"data": {**IMAGES, "n_clients": 2, "n_samples": 160},
 ASYNC_WORLD = {"data": {"kind": "prediction_world", "n_clients": 4,
                         "n_val": 16},
                "schedule": {"mode": "async"}}
+COMPILED = {"mode": "async", "backend": "compiled",
+            "select_during_run": False}
 REFUSED_AS_IN_REFERENCE = {
     "sinks_without_obs": {**ASYNC_WORLD, "obs": {"sinks": ["perfetto"]}},
     "trace_in_sync": {**SYNC_IMAGES, "obs": {"enabled": True,
@@ -436,6 +438,19 @@ REFUSED_AS_IN_REFERENCE = {
         "transport": "warp_drive"}},
     "unknown_churn_param": {**ASYNC_WORLD, "network": {
         "churn": {"name": "lognormal", "params": {"beta_typo": 1}}}},
+    # the compiled backend's refusals, raised when it runs
+    "compiled_image_world": {**SYNC_IMAGES, "schedule": COMPILED},
+    "compiled_in_loop_selection": {**ASYNC_WORLD, "schedule": {
+        **COMPILED, "select_during_run": True}},
+    "compiled_push_pull": {**ASYNC_WORLD, "schedule": COMPILED,
+                           "network": {"gossip": "push_pull"}},
+    "compiled_faults": {**ASYNC_WORLD, "schedule": COMPILED,
+                        "faults": {"injectors": ["crash_restart"]}},
+    "compiled_admission": {**ASYNC_WORLD, "schedule": COMPILED,
+                           "faults": {"admission": "validation_gate"}},
+    "compiled_serving": {**ASYNC_WORLD, "schedule": COMPILED,
+                         "serve": {"traffic": "poisson",
+                                   "monitor": False}},
 }
 
 
@@ -443,25 +458,32 @@ REFUSED_AS_IN_REFERENCE = {
 def test_refusals_match_reference(ref, name):
     d = REFUSED_AS_IN_REFERENCE[name]
     with pytest.raises(ValueError) as theirs:
-        ref[0](d).build()
+        ref[0](d).run()
     with pytest.raises(ValueError) as ours:
-        _port(d).build()
+        _port(d).run()
     assert str(ours.value) == str(theirs.value)
 
 
-NOT_PORTED = {
-    "compiled_backend": ({**ASYNC_WORLD, "schedule": {
-        "mode": "async", "backend": "compiled"}}, "queue 1 item 5"),
-    "restack": ({**ASYNC_WORLD, "selection": {"device_resident": False}},
-                "restack"),
+FORMERLY_REFUSED = {
+    "compiled_backend": {**ASYNC_WORLD, "schedule": COMPILED,
+                         "network": {"topology": "ring", "gossip": "push",
+                                     "transport": "gossip"}},
+    "restack": {**ASYNC_WORLD, "selection": {"device_resident": False}},
 }
 
 
-@pytest.mark.parametrize("name", sorted(NOT_PORTED))
-def test_unported_sections_raise(name):
-    d, match = NOT_PORTED[name]
-    with pytest.raises(NotImplementedError, match=match):
-        _port(d).build()
+@pytest.mark.parametrize("name", sorted(FORMERLY_REFUSED))
+def test_formerly_refused_sections_run(ref, name):
+    """The compiled backend and the restack selection path build and run
+    on the CPU, with the reference's net dict and coverage."""
+    d = FORMERLY_REFUSED[name]
+    ours, theirs = _port(d).run(), ref[0](d).run()
+    assert ours.net == theirs.net and ours.coverage == theirs.coverage
+    assert ours.perf["backend"] == theirs.perf["backend"]
+    if name == "restack":
+        assert ours.engine.store_batch is None
+        assert ours.trace.events == theirs.trace.events
+        assert _keys(ours.selections) == _keys(theirs.selections)
 
 
 def test_async_entry_points_default_to_cuda():

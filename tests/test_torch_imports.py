@@ -2,7 +2,8 @@
 a tiny synchronous slice, a tiny asynchronous run (lossy gossip, churn,
 repair, bounded stores, observability), one with faults and the
 validation gate and one serving queries through a label shift (the
-fault, admission, serving and dynamic-selection modules), a tiny
+fault, admission, serving and dynamic-selection modules), one on the
+compiled array world with the restack selection path, a tiny
 ensemble `serve_batch` of
 each ported model family (dense llama3-8b, ssm rwkv6-3b, hybrid
 zamba2-7b) and two training steps of smoke qwen2.5-3b and rwkv6-3b with
@@ -58,6 +59,18 @@ spec = ExperimentSpec.from_dict({**world, "serve": {
     "drift": [{"name": "label_shift", "params": {"at": 1.5}}]}})
 res = Experiment.from_spec(spec, device="cpu").run()
 assert res.net["serve"]["n_queries"] > 0
+spec = ExperimentSpec.from_dict({
+    **world, "network": {**world["network"], "transport": {
+        "name": "gossip", "params": {"drop_prob": 0.1}},
+        "churn": "lognormal"},
+    "selection": {**world["selection"], "device_resident": False},
+    "schedule": {"mode": "async", "select_during_run": False,
+                 "backend": {"name": "compiled",
+                             "params": {"chunk_ticks": 16}}},
+    "obs": {"enabled": True}})
+res = Experiment.from_spec(spec, device="cpu").run()
+assert res.perf["backend"] == "compiled" and res.metrics.names()
+assert res.engine.store_batch is None and res.engine.select()
 import torch
 from repro_torch.core.dynamic import des_accuracy
 x = torch.rand(8, 4)

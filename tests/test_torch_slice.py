@@ -127,21 +127,37 @@ def test_spec_runs_through_cli(tmp_path):
                                     "serve_s"}
 
 
-def test_unported_paths_raise(tmp_path):
-    compiled = {"schedule": {"mode": "async", "backend": "compiled"}}
-    spec = ExperimentSpec.from_dict({**SPEC, **compiled})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        Experiment.from_spec(spec, device="cpu").build()
-    restack = ExperimentSpec.from_dict(
+def test_restack_path_runs_the_slice(runs):
+    """selection.device_resident=False: the same slice on the restack path
+    (a host restack and fresh statistics every select, no device mirror)
+    picks the resident run's chromosomes and serves its test accuracy."""
+    _, _, tres, tds = runs
+    spec = ExperimentSpec.from_dict(
         {**SPEC, "selection": {**SPEC["selection"],
                                "device_resident": False}})
-    with pytest.raises(NotImplementedError, match="restack"):
-        Experiment.from_spec(restack, device="cpu").build()
-    bad = tmp_path / "bad.json"
-    bad.write_text(json.dumps({**SPEC, **compiled}, allow_nan=False))
+    res = Experiment(spec, datasets=tds, models=tres.models,
+                     ccfg=CNNConfig(n_classes=10, width=8, in_channels=3),
+                     device="cpu").run()
+    assert res.engine.store_batch is None
+    for a, b in zip(res.chromosomes, tres.chromosomes):
+        assert a.sum() == K
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(res.test_acc, tres.test_acc)
+
+
+def test_compiled_backend_runs_fleet_sweep_through_cli(tmp_path):
+    """schedule.backend="compiled" through the port's CLI on the repo's
+    fleet spec at its smoke size, on the CPU."""
+    out = tmp_path / "summary.json"
     proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.sim.run", "--spec", str(bad),
-         "--device", "cpu"], capture_output=True, text=True,
-        env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src")),
-        timeout=120)
-    assert proc.returncode == 2 and "queue 1" in proc.stderr
+        [sys.executable, "-m", "repro_torch.sim.run", "--spec",
+         os.path.join(REPO, "examples", "specs", "fleet_sweep.json"),
+         "--smoke", "--device", "cpu", "--json-out", str(out)],
+        capture_output=True, text=True,
+        env=dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"),
+                 OMP_NUM_THREADS="1"),
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    summary = json.loads(out.read_text())
+    assert summary["coverage"] == 1.0 and summary["n_clients"] == 256
+    assert summary["perf"]["backend"] == "compiled"
