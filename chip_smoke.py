@@ -103,6 +103,26 @@
    launches a select on both; the chromosomes held by outcome (k members
    everywhere, fleet-mean validation accuracy within 0.02), since cached
    and one-shot S differ in the last bits.
+4b'''. The paper's tables (phase 16, configuration 16; no kernel but
+   ensemble_fitness: the baselines are autograd over the CNNs, on cuDNN).
+   (a) On the sync slice's world (20 clients, Dir(0.1), 60000 images, 10
+   classes, the 5 families at width 16) the seven baselines of
+   fl/baselines.py (FLConfig(rounds=60, local_steps=2, seed=0): 60 rounds,
+   cut from table1_accuracy.py's --full 400), each timed: every accuracy
+   array (20,), finite, in [0, 1]. Prints Table I's row of every method
+   (fleet mean +- 1.96 std / sqrt(n), seconds, local steps/s; local and
+   fedpae from the slice's models and result), Table II's min / max
+   relative change against local, Table IV's analytic GFLOPs beside the
+   measured seconds, the clustered-gossip saving of the slice's chosen
+   owners (examples/beyond_paper.py:38-45), and one FedAvg round under
+   torch.profiler (launches, the device's busy share). (b) Each baseline
+   at 3 clients, width 8, 2 rounds of 1 step, from the port's own init
+   and draws, on the card and on the CPU: final test probabilities
+   within 1e-4. (c) FedAvg and FML twice at full width for 3 rounds:
+   bitwise-equal probabilities. (d) The port's Table I script,
+   repro_torch.benchmarks.table1_accuracy.run_grid, at
+   paper_cnn.smoke(), Dir(0.1), 2 rounds, on the card: the fitness
+   count, reset just before, must be 2 * generations + 1 per selection.
 4f'. Compiled array world (`sim/compiled.py`, no kernel: eager PyTorch
    tensor steps on the card). Configuration 13:
    examples/specs/fleet_sweep.json at its full size (2048 clients,
@@ -253,9 +273,9 @@
    kernel faster than its bound means the bound is no floor. The shares,
    the `kernels` JSON line (ensemble_fitness's `launches` is the sync
    slice's count; `launches_by_path` adds each async run's, those of
-   configurations 10-12 included, configuration 15's select and the
-   restack select, `by_shape` the timings at every path's shape), then
-   the result line.
+   configurations 10-12 included, configuration 15's select, the
+   restack select and the tables' smoke grid, `by_shape` the timings at
+   every path's shape), then the result line.
 
 Exits non-zero at the first failure, and when no CUDA device is present.
 TF32 is off for cuBLAS and cuDNN throughout, so every fp32 product is a
@@ -353,6 +373,16 @@ SERVE_PAPER = {
             "at": 27.0, "severity": 0.5, "fraction": 0.5}}],
     "policy": "ensemble", "monitor": True, "window": 64,
     "threshold": 0.12, "debounce": 0.5}
+# phase 16, the paper's tables: the baselines on cell 1's world, their
+# rounds cut from table1_accuracy.py's --full 400 to its default 60
+TABLES_FL = {"rounds": 60, "local_steps": 2, "width": 16, "seed": 0}
+REDUCED_TABLES = {"baselines.rounds": "400 -> 60 (benchmarks/"
+                                      "table1_accuracy.py:35, --full)"}
+TABLES_SMALL = {"n_clients": 3, "alpha": 0.5, "n_samples": 600,
+                "n_classes": 6, "size": 8, "rounds": 2, "local_steps": 1,
+                "width": 8}
+TABLES_CPU_TOL = 1e-4     # card against CPU, final test probabilities
+TABLES_REPEAT_ROUNDS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -1772,6 +1802,195 @@ def restack_phase(torch, sync_res, shapes):
             "resident_s": times[True]}
 
 
+def baseline_probs(name, datasets, n_classes, fl, device):
+    """(accuracies, every final test-probability array) of one baseline
+    run: the module's predict_probs is wrapped for the run."""
+    from repro_torch.fl import baselines
+    seen, orig = [], baselines.predict_probs
+
+    def predict_probs(*args, **kw):
+        out = orig(*args, **kw)
+        seen.append(out)
+        return out
+    baselines.predict_probs = predict_probs
+    try:
+        acc = baselines.BASELINES[name](datasets, n_classes, fl,
+                                        device=device)
+    finally:
+        baselines.predict_probs = orig
+    return acc, seen
+
+
+def profile_fedavg_round(torch, datasets, n_classes, fl):
+    """One FedAvg round (rounds=1: with its data upload, init and the
+    final evaluation of the test sets) under torch.profiler: launches and
+    the device's busy share of the wall."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fl.baselines import BASELINES
+    from repro_torch.obs.metrics import Stopwatch
+    one = dataclasses.replace(fl, rounds=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sw = Stopwatch().start()
+        BASELINES["fedavg"](datasets, n_classes, one, device="cuda")
+        torch.cuda.synchronize()
+        wall = sw.stop()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    n = sum(e.count for e in kernels)
+    print(f"tables [{CARD}]: one profiled FedAvg round ({len(datasets)} "
+          f"clients x {fl.local_steps} steps, with upload, init and the "
+          f"test-set evaluation): wall {wall:.6f} s, device busy "
+          f"{busy:.6f} s ({busy / wall:.4f} of wall), {n} kernel launches;"
+          " by kernel:")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:10.3f} ms  "
+              f"{e.count:6d} x  {e.key[:90]}")
+
+
+def tables_phase(torch, sync_exp, sync_res):
+    """Phase 16, the paper's tables: (a) the seven baselines at full
+    width on cell 1's world (Table I, II and IV rows, the clustered-gossip
+    saving, one profiled FedAvg round); (b) each baseline at a small size
+    on the card and on the CPU; (c) FedAvg and FML twice at full width;
+    (d) Table I's script end to end at paper_cnn.smoke()."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.benchmarks import table1_accuracy
+    from repro_torch.benchmarks import table2_negative_transfer as table2
+    from repro_torch.benchmarks.common import make_clients
+    from repro_torch.benchmarks.table4_cost import analytic_flops
+    from repro_torch.configs import paper_cnn
+    from repro_torch.fl.baselines import BASELINES, FLConfig
+    from repro_torch.fl.clustering import ClusterState, clustering_savings
+    from repro_torch.kernels.ensemble_fitness import kernel
+    from repro_torch.models.cnn import CNNConfig
+    from repro_torch.obs.metrics import Stopwatch
+    from repro_torch.sim import fedpae_config
+
+    spec = sync_exp.spec
+    datasets, C = sync_exp.datasets, spec.data.n_classes
+    fams = tuple(spec.train.families)
+    N = len(datasets)
+    fl = FLConfig(families=fams, **TABLES_FL)
+    print("tables config:", json.dumps({
+        "world": "cell 1 (the slice's datasets and trained models)",
+        "fl": dataclasses.asdict(fl), "reduced": REDUCED_TABLES},
+        allow_nan=False))
+
+    # (a) the seven baselines at full width
+    key = f"synthetic{C}|{spec.data.alpha}|{spec.seed}"
+    cell = {"local": sync_exp.local_ensemble().tolist(),
+            "fedpae": sync_res.test_acc.tolist(),
+            "fedpae_local_frac": sync_res.local_frac.tolist()}
+    steps = N * fl.rounds * fl.local_steps
+    rows = {}
+    for name in BASELINES:
+        torch.cuda.synchronize()
+        sw = Stopwatch().start()
+        acc = BASELINES[name](datasets, C, fl, device="cuda")
+        torch.cuda.synchronize()
+        secs = sw.stop()
+        check(acc.shape == (N,) and np.isfinite(acc).all()
+              and ((acc >= 0) & (acc <= 1)).all(),
+              f"{name}: bad test accuracies {acc}")
+        cell[name] = acc.tolist()
+        rows[name] = {"s": secs, "steps_per_s": steps / secs}
+    for m in table1_accuracy.METHODS:
+        a = np.array(cell[m])
+        ci = 1.96 * a.std() / max(1, len(a)) ** 0.5
+        timing = (f"; {rows[m]['s']:.6f} s, {rows[m]['steps_per_s']:.3f} "
+                  f"local steps/s ({steps} steps)" if m in rows else "")
+        print(f"table I [{CARD}] {key} {m}: {a.mean():.6f} ± {ci:.6f}"
+              + timing)
+    table = table2.negative_transfer({key: cell})
+    for m, (lo, hi) in table.items():
+        print(f"table II {key} {m}: relative change against local "
+              f"min {lo:+.6f}, max {hi:+.6f}")
+    print(f"table II: FedPAE >= local on every client (min_rel >= 0): "
+          f"{table['fedpae'][0] >= 0}")
+
+    ccfg = CNNConfig(n_classes=C, width=fl.width,
+                     in_channels=datasets[0].x_tr.shape[-1])
+    D = int(np.mean([len(d.x_tr) for d in datasets]))
+    V = int(np.mean([len(d.x_va) for d in datasets]))
+    fp = fedpae_config(spec)
+    fedpae_flops, round_flops = analytic_flops(fp, fl, ccfg, N, D, V)
+    perf = sync_res.perf
+    t_fedpae = sum(v for v in perf.values() if isinstance(v, float))
+    print(f"table IV [{CARD}]: fedpae {fedpae_flops / 1e9:.6f} GFLOP "
+          f"analytic ({fp.max_epochs} epochs), {t_fedpae:.6f} s measured "
+          f"(cell 1's round: {json.dumps(perf, allow_nan=False)}); fedavg "
+          f"{round_flops / 1e9:.6f} GFLOP analytic ({fl.rounds} rounds), "
+          f"{rows['fedavg']['s']:.6f} s measured")
+
+    # the clustered-gossip saving from cell 1's chosen owners
+    # (examples/beyond_paper.py:38-45)
+    st = ClusterState.init(N)
+    for c, chrom in enumerate(sync_res.chromosomes):
+        st.update(c, sync_res.stores[c].owners[chrom > 0.5].tolist())
+    saving = clustering_savings(st, models_per_client=len(fams))
+    print(f"clustered gossip from cell 1's selections: {saving:.6f} of the "
+          "full graph's exchange volume saved")
+    profile_fedavg_round(torch, datasets, C, fl)
+
+    # (b) card against CPU at a small size, from the port's own init
+    sm = TABLES_SMALL
+    small, _ = make_clients(sm["n_clients"], sm["alpha"], sm["n_samples"],
+                            sm["n_classes"], size=sm["size"], seed=0)
+    fl_s = FLConfig(rounds=sm["rounds"], local_steps=sm["local_steps"],
+                    width=sm["width"])
+    gaps = {}
+    for name in BASELINES:
+        _, card = baseline_probs(name, small, sm["n_classes"], fl_s, "cuda")
+        _, cpu = baseline_probs(name, small, sm["n_classes"], fl_s, "cpu")
+        gaps[name] = max(float(np.abs(a - b).max())
+                         for a, b in zip(card, cpu))
+    print(f"tables: card vs CPU final test probabilities ({sm}), max abs "
+          f"gap by method: {json.dumps(gaps, allow_nan=False)} (limit "
+          f"{TABLES_CPU_TOL})")
+    check(max(gaps.values()) <= TABLES_CPU_TOL,
+          f"baselines: card and CPU disagree: {gaps}")
+
+    # (c) FedAvg and FML twice at full width: the same bits
+    fl_r = dataclasses.replace(fl, rounds=TABLES_REPEAT_ROUNDS)
+    for name in ("fedavg", "fml"):
+        runs = [baseline_probs(name, datasets, C, fl_r, "cuda")[1]
+                for _ in range(2)]
+        same = all(np.array_equal(a, b) for a, b in zip(*runs))
+        print(f"tables: {name} twice at full width, {fl_r.rounds} rounds: "
+              f"final test probabilities bitwise equal: {same}")
+        check(same, f"{name} is not repeatable on the card")
+
+    # (d) Table I's script end to end on the card
+    pc = paper_cnn.smoke()
+    per = 2 * pc["fedpae"].nsga.generations + 1
+    out = ROOT / "results" / "torch" / "table1.json"
+    kernel.KERNEL.launches = 0
+    sw = Stopwatch().start()
+    grid = table1_accuracy.run_grid(pc=pc, alphas=(0.1,), rounds=2,
+                                    device="cuda", out=str(out))
+    torch.cuda.synchronize()
+    wall = sw.stop()
+    launches = kernel.KERNEL.launches
+    table1_accuracy.print_table(grid)
+    check(_strict_json(out) == grid, "table1.json is not the grid")
+    print(f"tables (smoke) [{CARD}]: run_grid of {len(grid)} cell in "
+          f"{wall:.6f} s; ensemble_fitness launches {launches}, expected "
+          f"{per} per selection")
+    check(launches == per * len(grid),
+          f"run_grid: ensemble_fitness launched {launches} times, "
+          f"expected {per * len(grid)}")
+    return launches
+
+
 def attention_bound(B, H, KV, Sq, Sk, hd, causal=True, window=0,
                     elem_bytes=2):
     """Least time (ms) for one flash_attention call: 4 B H hd FLOP per
@@ -3087,6 +3306,7 @@ def main() -> int:
     serve_paper = serve_paper_phase(torch, sync_exp, sync_res)
     restack_shapes, world_shapes = set(), set()
     restack = restack_phase(torch, sync_res, restack_shapes)
+    tables = tables_phase(torch, sync_exp, sync_res)
     del sync_exp, sync_res
     gossip = gossip_churn_phase(torch)
     faults = faults_phase(torch)
@@ -3136,7 +3356,8 @@ def main() -> int:
                for k, v in serve_drift.items()},
             "async config 12": serve_paper["launches"],
             "compiled config 15": world["launches"],
-            "restack": restack["launches"]},
+            "restack": restack["launches"],
+            "tables (smoke)": tables},
         "by_shape": {str(shape): dict(zip(
             ("ms", "plain_ms", "bound_ms", "bound_by"),
             timings[("batched",) + shape]))

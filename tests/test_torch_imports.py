@@ -3,8 +3,9 @@ a tiny synchronous slice, a tiny asynchronous run (lossy gossip, churn,
 repair, bounded stores, observability), one with faults and the
 validation gate and one serving queries through a label shift (the
 fault, admission, serving and dynamic-selection modules), one on the
-compiled array world with the restack selection path, a tiny
-ensemble `serve_batch` of
+compiled array world with the restack selection path, a two-round
+baseline (FML) with the clustered-gossip saving, a tiny ensemble
+`serve_batch` of
 each ported model family (dense llama3-8b, ssm rwkv6-3b, hybrid
 zamba2-7b) and two training steps of smoke qwen2.5-3b and rwkv6-3b with
 a checkpoint on the CPU loads neither JAX nor any module of the
@@ -71,6 +72,16 @@ spec = ExperimentSpec.from_dict({
 res = Experiment.from_spec(spec, device="cpu").run()
 assert res.perf["backend"] == "compiled" and res.metrics.names()
 assert res.engine.store_batch is None and res.engine.select()
+from repro_torch.benchmarks.common import make_clients
+from repro_torch.fl.baselines import BASELINES, FLConfig
+from repro_torch.fl.clustering import ClusterState, clustering_savings
+clients, _ = make_clients(3, 0.5, 300, 4, size=8)
+acc = BASELINES["fml"](clients, 4, FLConfig(rounds=2, local_steps=1,
+                       families=("cnn4", "vgg"), width=4), device="cpu")
+assert acc.shape == (3,)
+st = ClusterState.init(4)
+st.update(0, [1, 2])
+assert clustering_savings(st) == 0.5
 import torch
 from repro_torch.core.dynamic import des_accuracy
 x = torch.rand(8, 4)
