@@ -153,8 +153,11 @@
    head dim 112, bf16 window and softcap at hd 64, 112 and 128, a ragged
    S = 100, the serving slice's shape (4, 32, 8, 2048, 2048, 128),
    zamba2-7b's shared-attention shape (4, 32, 32, 2048, 2048, 112), also
-   with window and softcap, and the long-context shape (1, 32, 8, 8192,
-   8192, 128), bf16 causal, each held against its plain version on the
+   with window and softcap, the long-context shape (1, 32, 8, 8192,
+   8192, 128) and the zoo's prefill shapes (ZOO_FLASH_SHAPES: arctic-480b's
+   (4, 56, 8, 2048, 2048, 128), G = 7; command-r-plus-104b's (4, 96, 8,
+   ..., 128), G = 12; musicgen-medium's (4, 24, 24, ..., 64), MHA), bf16
+   causal, each held against its plain version on the
    card (fp32 atol = rtol = 2e-5, bf16 2e-2, as
    tests/test_kernels.py:70,83). At the slice's shape ops.flash_attention
    on the same data in the model layout (B, S, H, hd) must equal the
@@ -162,7 +165,8 @@
    causal shapes: timed in turns against the plain version (and, at the
    slice's shape, through ops.py on the model layout), the kernel's
    device time from torch.profiler, scaled_dot_product_attention timed as
-   the library yardstick (never called by the port), and the bound.
+   the library yardstick (never called by the port), and the bound; so at
+   the zoo's three shapes.
 6. Kernel: ssd_scan and wkv_scan at the reference's test shapes
    (tests/test_kernels.py:86-90,107-111), its padding shapes (S = 200
    and 100), a wkv case with a carried state and two with strong decay
@@ -226,10 +230,16 @@
    time printed beside the bytes it moves in the kernel's own design,
    ssd_bwd_design_bytes, and the rate that gives), and the bound (bytes,
    against twice the forward's least work).
-8. Model check: the smoke rwkv6-3b and zamba2-7b in fp32, the same
-   weights on the card (kernels) and on the CPU (plain versions):
-   prefill logits and states agree (atol 3e-4, rtol 1e-3).
-9. Train check: the smoke qwen2.5-3b, rwkv6-3b and zamba2-7b in fp32,
+8. Model check: the smoke rwkv6-3b, zamba2-7b, qwen3-moe-235b-a22b,
+   arctic-480b, command-r-plus-104b, llama-3.2-vision-11b (with images)
+   and musicgen-medium (with codebooks) in fp32, the last five under
+   attn_impl "pallas", the same weights on the card (kernels) and on the
+   CPU (plain versions): prefill logits and states or caches agree (atol
+   3e-4, rtol 1e-3).
+9. Train check: the smoke qwen2.5-3b, rwkv6-3b, zamba2-7b,
+   qwen3-moe-235b-a22b (the loss with 0.01 x the router aux),
+   llama-3.2-vision-11b (image embeddings from a seed) and
+   musicgen-medium (codebooks) in fp32,
    from the same parameters (drawn on the CPU, as train() draws them)
    and the same TokenPipeline(seed=0) batches, on the card (rwkv6: both
    wkv kernels; zamba2: both ssd kernels) and on the CPU (plain
@@ -256,10 +266,22 @@
    one's members first), the device's busy share of the prefill (with
    its largest kernels) and of one decode step (with its launches), and
    for llama3-8b the pallas-vs-xla gap of member 0's last-position
-   probabilities.
+   probabilities. Then the rest of the zoo the same way, the depth cut
+   where two bf16 members would not fit (REDUCED_SERVE):
+   qwen3-moe-235b-a22b at 6 of 94 layers (g_major, so no flash: 0
+   launches), arctic-480b at 1 of 35 (2) and command-r-plus-104b at 8 of
+   64 (16), each MoE member's prefill run twice with bitwise equal logits
+   and cache; llama-3.2-vision-11b (full depth) and musicgen-medium (full
+   depth) through make_prefill_step and 15 make_serve_step calls a member
+   (step_serve: the same soft vote, greedy per codebook for audio), vlm
+   with image embeddings (4, 1600, 1280) from a seed (flash on its 32
+   self-attention layers: 64) and then text-only through serve_batch
+   (every layer: 80), musicgen on (4, 2048, 4) codebook prompts (96).
 11. Train, in turn: `train()` of qwen2.5-3b and rwkv6-3b at full width
-   and depth and zamba2-7b at full width and 45 of its 81 layers (for
-   memory: 7 super-blocks of 6 Mamba2 blocks and a tail of 3), bf16,
+   and depth, zamba2-7b at full width and 45 of its 81 layers (for
+   memory: 7 super-blocks of 6 Mamba2 blocks and a tail of 3) and
+   qwen3-moe-235b-a22b at full width and 1 of its 94 layers (then its
+   cross-entropy and router aux on a held-out batch), bf16,
    random weights from seed 0, adamw (weight decay 0.01) and
    warmup_cosine, 6 steps of 4 x 2048 tokens from TokenPipeline(seed=0)
    in 2 microbatches. The scan kernels' counts are reset just before
@@ -275,7 +297,9 @@
    slice's count; `launches_by_path` adds each async run's, those of
    configurations 10-12 included, configuration 15's select, the
    restack select and the tables' smoke grid, `by_shape` the timings at
-   every path's shape), then the result line.
+   every path's shape; flash_attention's `launches` is llama3-8b's
+   serve_batch, its `launches_by_path` every serving path's, its
+   `by_shape` every timed shape's), then the result line.
 
 Exits non-zero at the first failure, and when no CUDA device is present.
 TF32 is off for cuBLAS and cuDNN throughout, so every fp32 product is a
@@ -313,6 +337,23 @@ SERVES = [  # (arch, config overrides, the kernel package its prefill runs)
     ("llama3-8b", {"attn_impl": "pallas"}, "flash_attention"),
     ("rwkv6-3b", {}, "wkv_scan"),
     ("zamba2-7b", {}, "ssd_scan")]
+PALLAS = {"attn_impl": "pallas"}
+ZOO_SERVES = [  # (arch, config overrides): serve_batch, 2 members of SERVE
+    ("qwen3-moe-235b-a22b", dict(PALLAS, n_layers=6)),   # g_major: no flash
+    ("arctic-480b", dict(PALLAS, n_layers=1)),
+    ("command-r-plus-104b", dict(PALLAS, n_layers=8))]
+ZOO_STEP_SERVES = ["llama-3.2-vision-11b", "musicgen-medium"]  # full depth
+REDUCED_SERVE = {  # 2 bf16 members must fit one 80 GB card beside the run
+    "qwen3-moe-235b-a22b": "n_layers 94 -> 6: 4.975 GB a layer and 2.49 GB "
+                           "of embedding and head a member",
+    "arctic-480b": "n_layers 35 -> 1: 27.2 GB a layer; 2 layers x 2 members "
+                   "= 111 GB do not fit",
+    "command-r-plus-104b": "n_layers 64 -> 8: 3.15 GB a layer and 6.29 GB "
+                           "of tied embedding a member"}
+ZOO_FLASH_SHAPES = [   # the zoo's prefill shapes at batch 4, new to the kernel
+    (4, 56, 8, 2048, 2048, 128),    # arctic-480b, G = 7
+    (4, 96, 8, 2048, 2048, 128),    # command-r-plus-104b, G = 12
+    (4, 24, 24, 2048, 2048, 64)]    # musicgen-medium, MHA at head dim 64
 SCAN_Y_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}   # of max |y|
 SCAN_STATE_TOL = 1e-3
 SCAN_F64_TOL = 1e-6    # fp32 scans at the slice shapes, of max |y|
@@ -2011,11 +2052,11 @@ def attention_bound(B, H, KV, Sq, Sk, hd, causal=True, window=0,
 
 def flash_phase(torch):
     """Every flash_attention case against its plain version on the card;
-    timings at the slice's, zamba2-7b's shared-attention and the
-    long-context shape. At the slice's shape the kernel is timed on
-    contiguous (B, H, S, hd) inputs, as earlier versions were timed, and
-    through ops.py on the same data in the model layout (B, S, H, hd),
-    in turns with SDPA."""
+    timings at the slice's, zamba2-7b's shared-attention, the
+    long-context shape and the zoo's three (ZOO_FLASH_SHAPES). At the
+    slice's shape the kernel is timed on contiguous (B, H, S, hd) inputs,
+    as earlier versions were timed, and through ops.py on the same data
+    in the model layout (B, S, H, hd), in turns with SDPA."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel, ops, ref
@@ -2034,7 +2075,8 @@ def flash_phase(torch):
              + [(SLICE_SHAPE, "bfloat16", 0, 0.0),
                 (ZAMBA_ATTN_SHAPE, "bfloat16", 0, 0.0),
                 (ZAMBA_ATTN_SHAPE, "bfloat16", 512, 30.0),
-                (LONG_SHAPE, "bfloat16", 0, 0.0)])
+                (LONG_SHAPE, "bfloat16", 0, 0.0)]
+             + [(shape, "bfloat16", 0, 0.0) for shape in ZOO_FLASH_SHAPES])
     timings = {}
     for shape, dtype, window, cap in cases:
         B, H, KV, Sq, Sk, hd = shape
@@ -2063,7 +2105,7 @@ def flash_phase(torch):
               f"window {window} softcap {cap} disagrees with its plain "
               f"version: max abs err {err}")
         timed = window == 0 and shape in (SLICE_SHAPE, ZAMBA_ATTN_SHAPE,
-                                          LONG_SHAPE)
+                                          LONG_SHAPE, *ZOO_FLASH_SHAPES)
         if shape == SLICE_SHAPE:   # the same data in the model layout
             qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             before = kernel.KERNEL.launches
@@ -2153,14 +2195,8 @@ def profile_serve(torch, cfg, members, prompts, toks, label="serve"):
         serve_batch(cfg, members, prompts, gen_len=1)
         torch.cuda.synchronize()
         wall = sw.stop()
-    events = [e for e in prof.key_averages()
-              if e.device_type.name == "CUDA" and e.self_device_time_total]
-    busy = sum(e.self_device_time_total for e in events) / 1e6
-    print(f"{label}: profiled prefill (both members): wall {wall:.6f} s, "
-          f"device busy {busy:.6f} s ({busy / wall:.4f} of wall)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  {e.self_device_time_total / 1e3:10.3f} ms  "
-              f"{e.count:6d} x  {e.key[:90]}")
+    profile_report(prof, wall, f"{label}: profiled prefill (both "
+                   "members)", top=8)
 
     with torch.inference_mode():
         _, cache = tf.forward(members[0], cfg, prompts, mode="prefill",
@@ -2176,12 +2212,22 @@ def profile_serve(torch, cfg, members, prompts, toks, label="serve"):
             torch.cuda.synchronize()
             wall = sw.stop()
         del cache
+    profile_report(prof, wall, f"{label}: profiled decode step (one "
+                   "member)")
+
+
+def profile_report(prof, wall, what, top=0):
+    """Prints a profiled window's device busy time and share of `wall`
+    (s), its kernel launches and its `top` largest kernels."""
     events = [e for e in prof.key_averages()
               if e.device_type.name == "CUDA" and e.self_device_time_total]
     busy = sum(e.self_device_time_total for e in events) / 1e6
-    print(f"{label}: profiled decode step (one member): wall {wall:.6f} s, "
-          f"device busy {busy:.6f} s ({busy / wall:.4f} of wall), "
-          f"{sum(e.count for e in events)} kernel launches")
+    print(f"{what}: wall {wall:.6f} s, device busy {busy:.6f} s "
+          f"({busy / wall:.4f} of wall), {sum(e.count for e in events)} "
+          "kernel launches")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"  {e.self_device_time_total / 1e3:10.3f} ms  "
+              f"{e.count:6d} x  {e.key[:90]}")
 
 
 def _chunk_sizes(S):
@@ -2879,20 +2925,29 @@ TRAIN_GRAD_TOL = 1e-4      # card against CPU, each parameter's first-step
                            # gradient, of its max |g|
 TRAIN_FULL = {"steps": 6, "batch": 4, "seq": 2048, "microbatches": 2,
               "seed": 0}
-TRAINS = {  # arch -> n_layers: zamba2-7b's depth cut for memory
-    "qwen2.5-3b": None, "rwkv6-3b": None, "zamba2-7b": 45}
+TRAINS = {  # arch -> n_layers: the depth cut for memory
+    "qwen2.5-3b": None, "rwkv6-3b": None, "zamba2-7b": 45,
+    "qwen3-moe-235b-a22b": 1}
+TRAIN_CHECKS = ["qwen2.5-3b", "rwkv6-3b", "zamba2-7b", "qwen3-moe-235b-a22b",
+                "llama-3.2-vision-11b", "musicgen-medium"]
 REDUCED_TRAIN = {"zamba2-7b": "n_layers 81 -> 45 (7 super-blocks of 6 "
                  "Mamba2 blocks and a tail of 3, both shared attention "
                  "blocks in use): 6956658896 parameters with adamw's fp32 "
-                 "moments and gradients do not fit one 80 GB card"}
+                 "moments and gradients do not fit one 80 GB card",
+                 "qwen3-moe-235b-a22b": "n_layers 94 -> 1: 3.73e9 "
+                 "parameters x 16 bytes (bf16 weights, fp32 moments and "
+                 "accumulator, bf16 gradients) = 59.7 GB beside the "
+                 "microbatches' activations; 2 layers add 10.3e9 x 16 bytes"}
 
 
 def smoke_train(torch, arch, device):
     """The smoke `arch` in fp32 on `device` from parameters drawn on the
-    CPU (as train() draws them): the first batch's gradients (on the
-    CPU, by name), then TRAIN_CHECK's adamw steps as train() takes them
-    (weight decay 0.01, warmup_cosine over 10 steps) on the same
-    TokenPipeline batches; returns (grads, losses)."""
+    CPU (as train() draws them): the first batch's gradients of the
+    step's loss (the moe family's with 0.01 x its router aux; vlm with
+    image embeddings from a seed, the same every batch; audio with
+    codebooks), on the CPU, by name, then TRAIN_CHECK's adamw steps as
+    train() takes them (weight decay 0.01, warmup_cosine over 10 steps)
+    on the same TokenPipeline batches; returns (grads, losses)."""
     from repro_torch.configs import get_smoke
     from repro_torch.data import TokenPipeline
     from repro_torch.launch import steps as steps_mod
@@ -2903,14 +2958,21 @@ def smoke_train(torch, arch, device):
     cfg = get_smoke(arch).replace(dtype="float32")
     params = tf.init_params(cfg, torch.Generator().manual_seed(c["seed"]))
     params = params.to(device)
-    pipe = TokenPipeline(cfg.vocab, c["batch"], c["seq"], seed=c["seed"])
+    pipe = TokenPipeline(cfg.vocab, c["batch"], c["seq"],
+                         n_codebooks=cfg.n_codebooks, seed=c["seed"])
+    _, img = zoo_inputs(cfg, c["batch"], 1, c["seed"], device)
     batches = [{k: torch.as_tensor(hb[k], device=device)
                 for k in ("tokens", "labels")}
                for hb, _ in zip(pipe, range(c["steps"]))]
+    if img is not None:
+        batches = [dict(b, img_emb=img) for b in batches]
     named = dict(params.named_parameters())
-    logits, _ = tf.forward(params, cfg, batches[0]["tokens"], mode="train")
+    logits, aux = tf.forward(params, cfg, batches[0]["tokens"], mode="train",
+                             img_emb=img)
     loss = cross_entropy(logits, batches[0]["labels"],
                          cfg.final_logit_softcap)
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux
     grads = {n: torch.zeros(p.shape) if g is None else g.detach().cpu()
              for (n, p), g in zip(named.items(), torch.autograd.grad(
                  loss, list(named.values()), allow_unused=True))}
@@ -2963,16 +3025,18 @@ def _scan_kernels():
 
 
 def train_check_phase(torch):
-    """Smoke qwen2.5-3b, rwkv6-3b and zamba2-7b training in fp32, on the
-    card (the scan kernels forward and backward) and on the CPU (plain
-    versions) from the same parameters and batches: first-step gradients
-    and the losses agree, the card's loss falls, and every rwkv6 and
-    Mamba2 layer's scan went through both of its kernels. Then the same
+    """Smoke training in fp32 of TRAIN_CHECKS (qwen2.5-3b, rwkv6-3b,
+    zamba2-7b, qwen3-moe-235b-a22b, llama-3.2-vision-11b and
+    musicgen-medium), on the card (the scan kernels forward and backward)
+    and on the CPU (plain versions) from the same parameters and batches:
+    first-step gradients and the losses agree, the card's loss falls,
+    and every rwkv6 and Mamba2 layer's scan went through both of its
+    kernels. Then the same
     card run with a planted fault (the wkv backward's dk, the ssd
     backward's ddt zeroed) must fail the gradient check."""
     from repro_torch.configs import get_smoke
     c = TRAIN_CHECK
-    for arch in TRAINS:
+    for arch in TRAIN_CHECKS:
         cfg = get_smoke(arch)
         kern, fn_class, index, what = _scan_kernels().get(
             cfg.family, (None,) * 4)
@@ -3038,7 +3102,8 @@ def full_train_phase(torch, arch, n_layers):
                 "family", "n_layers", "d_model", "n_heads", "n_kv_heads",
                 "head_dim", "d_ff", "vocab", "rwkv_head_dim", "ssm_state",
                 "ssm_head_dim", "shared_attn_every", "n_shared_attn",
-                "attn_impl", "attn_chunk", "dtype", "source")}},
+                "n_experts", "top_k", "capacity_factor", "attn_impl",
+                "attn_chunk", "dtype", "source")}},
         allow_nan=False))
     kern = _scan_kernels().get(cfg.family, (None,))[0]
     kname = kern and kern.KERNEL.name
@@ -3065,6 +3130,22 @@ def full_train_phase(torch, arch, n_layers):
              f"{c['steps']} steps" if kern else "no scan kernel"))
     check(all(map(math.isfinite, losses)),
           f"{arch}: non-finite training losses {losses}")
+    if cfg.n_experts:   # the step's loss is cross-entropy + 0.01 x aux
+        from repro_torch.models import transformer as tf
+        from repro_torch.models.common import cross_entropy
+        hb = next(iter(TokenPipeline(cfg.vocab, 2, c["seq"], seed=2)))
+        with torch.no_grad():
+            logits, aux = tf.forward(params, cfg, torch.as_tensor(
+                hb["tokens"], device="cuda"), mode="train")
+            ce = float(cross_entropy(logits, torch.as_tensor(
+                hb["labels"], device="cuda")))
+        del logits
+        print(f"train {arch}: after the steps, a held-out batch of 2 x "
+              f"{c['seq']} tokens: cross-entropy {ce:.6f}, router aux "
+              f"{float(aux):.6f} (each step's loss above is cross-entropy "
+              "+ 0.01 x aux)")
+        check(math.isfinite(ce) and math.isfinite(float(aux)),
+              f"{arch}: non-finite loss {ce} or aux {float(aux)}")
     n_mb = c["microbatches"]
     if kern is not None:
         want = (2 * cfg.n_layers * n_mb, cfg.n_layers * n_mb)
@@ -3120,6 +3201,17 @@ def select_determinism(engine):
                       f"{differ} differ, objective gap {gap}")
 
 
+def _tree_equal(torch, a, b):
+    """Whether two caches (dicts, lists, tensors) are bitwise equal."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_tree_equal(torch, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(_tree_equal(torch, x, y)
+                                        for x, y in zip(a, b))
+    return bool(torch.equal(a, b))
+
+
 def _tree_err(a, b):
     """Largest |a - b| over matching tensors of two caches."""
     if isinstance(a, dict):
@@ -3129,38 +3221,136 @@ def _tree_err(a, b):
     return float((a.float().cpu() - b.float().cpu()).abs().max())
 
 
-def model_check_phase(torch):
-    """Smoke rwkv6-3b and zamba2-7b in fp32: the same weights give the
-    same prefill on the card (kernels) as on the CPU (plain versions)."""
-    import numpy as np
+MODEL_CHECKS = {  # arch -> config overrides: smoke fp32, card vs CPU
+    "rwkv6-3b": {}, "zamba2-7b": {},
+    "qwen3-moe-235b-a22b": PALLAS, "arctic-480b": PALLAS,
+    "command-r-plus-104b": PALLAS, "llama-3.2-vision-11b": PALLAS,
+    "musicgen-medium": PALLAS}
 
+
+def zoo_inputs(cfg, B, S, seed, device):
+    """Tokens ((B, S), or (B, S, ncb) for audio) from TokenPipeline(seed)
+    and, for vlm, image embeddings (B, n_img_tokens, d_vision) in bf16
+    from a numpy seed, on `device`."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import TokenPipeline
+    toks = next(iter(TokenPipeline(cfg.vocab, B, S,
+                                   n_codebooks=cfg.n_codebooks,
+                                   seed=seed)))["tokens"]
+    img = None
+    if cfg.family == "vlm":
+        img = torch.as_tensor(np.random.default_rng(seed).standard_normal(
+            (B, cfg.n_img_tokens, cfg.d_vision)).astype(np.float32)).to(
+            torch.bfloat16).to(device)
+    return torch.as_tensor(toks, device=device), img
+
+
+def model_check_phase(torch):
+    """The smoke configs of the recurrent families and of the rest of the
+    zoo in fp32 (attn_impl "pallas": flash_attention on the card where
+    the config is kv_major; vlm with images, audio with codebooks): the
+    same weights give the same prefill on the card (kernels) as on the
+    CPU (plain versions)."""
     from repro_torch.configs import get_smoke
     from repro_torch.models import transformer as tf
-    for arch in ("rwkv6-3b", "zamba2-7b"):
-        cfg = get_smoke(arch).replace(dtype="float32")
+    for arch, overrides in MODEL_CHECKS.items():
+        cfg = get_smoke(arch).replace(dtype="float32", **overrides)
         cpu = tf.init_params(cfg, torch.Generator().manual_seed(3))
         card = copy.deepcopy(cpu).to("cuda")
-        toks = np.random.default_rng(4).integers(
-            0, cfg.vocab, (2, 200)).astype(np.int32)
+        toks, img = zoo_inputs(cfg, 2, 200, 4, "cpu")
         with torch.inference_mode():
-            want, wc = tf.forward(cpu, cfg, torch.as_tensor(toks),
-                                  mode="prefill")
-            got, c = tf.forward(card, cfg, torch.as_tensor(toks,
-                                                           device="cuda"),
-                                mode="prefill")
+            want, wc = tf.forward(cpu, cfg, toks, mode="prefill",
+                                  img_emb=img)
+            got, c = tf.forward(card, cfg, toks.cuda(), mode="prefill",
+                                img_emb=None if img is None else img.cuda())
         torch.cuda.synchronize()
         ok = bool(torch.allclose(got.cpu(), want, atol=3e-4, rtol=1e-3))
         err = float((got.cpu() - want).abs().max())
         c_err = _tree_err(c, wc)
-        print(f"model check {arch} smoke fp32, S = 200: card vs CPU prefill "
-              f"logits max abs diff {err:.3e}, states {c_err:.3e}")
+        print(f"model check {arch} smoke fp32 {overrides}, S = 200: card vs "
+              f"CPU prefill logits max abs diff {err:.3e}, caches / states "
+              f"{c_err:.3e}")
         check(ok and c_err < 1e-3, f"{arch}: card and CPU prefill disagree "
                                    f"(logits {err}, states {c_err})")
 
 
-def serve_phase(torch, arch, overrides, kname):
-    """Two full-width members of `arch` served through serve_batch; every
-    prefill layer of the family runs kernel `kname`."""
+def kernel_layers(cfg, kname, images=False):
+    """The layers of one member's prefill that launch `kname`: every
+    layer for a scan; for flash_attention every self-attention layer of a
+    kv_major config under attn_impl "pallas" (vlm: the cross layers too
+    when no images reach them, as serve_batch passes none), else none."""
+    if kname != "flash_attention":
+        return cfg.n_layers
+    if cfg.attn_impl != "pallas" or cfg.gqa_layout != "kv_major":
+        return 0
+    if cfg.family == "vlm":
+        n_super = cfg.n_layers // cfg.cross_attn_every
+        return n_super * (cfg.cross_attn_every - int(images))
+    return cfg.n_layers
+
+
+SERVE_CONFIG_KEYS = (
+    "family", "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+    "d_ff", "vocab", "ssm_state", "ssm_head_dim", "shared_attn_every",
+    "n_shared_attn", "rwkv_head_dim", "n_experts", "top_k",
+    "moe_dense_residual", "capacity_factor", "gqa_layout",
+    "cross_attn_every", "n_img_tokens", "d_vision", "n_codebooks",
+    "tie_embeddings", "attn_impl", "dtype", "source")
+
+
+def serve_members(torch, arch, cfg, what):
+    """Prints the config and draws SERVE's members of `cfg` on the card
+    (each from its seed); returns them."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.obs.metrics import Stopwatch
+    torch.cuda.empty_cache()
+    print(f"serve {arch} config:", json.dumps({
+        "serve": dict(SERVE, arch=arch, path=what),
+        "reduced": REDUCED_SERVE.get(arch, "nothing"),
+        "model": {k: getattr(cfg, k) for k in SERVE_CONFIG_KEYS}},
+        allow_nan=False))
+    sw = Stopwatch().start()
+    members = []
+    for seed in SERVE["seeds"]:
+        members.append(tf.init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(seed)))
+        torch.cuda.empty_cache()    # the draws' fp32 temporaries
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in members[0].parameters())
+    n_bytes = sum(p.numel() * p.element_size()
+                  for m in members for p in m.parameters())
+    print(f"serve {arch}: {len(members)} members of {n_par} parameters "
+          f"({n_bytes} bytes of weights, {n_bytes / 1e9:.3f} GB) initialised "
+          f"on the card in {sw.stop():.3f} s; device memory in use "
+          f"{torch.cuda.memory_allocated()} bytes")
+    return members
+
+
+def moe_repeat_check(torch, cfg, member, prompts, arch):
+    """The same member's prefill twice: bitwise equal logits and cache
+    (the MoE combine adds each token's contributions in a fixed order,
+    without atomics)."""
+    from repro_torch.models import transformer as tf
+    S = prompts.shape[1]
+    with torch.inference_mode():
+        a = tf.forward(member, cfg, prompts, mode="prefill",
+                       cache_len=S + 1, last_only=True)
+        b = tf.forward(member, cfg, prompts, mode="prefill",
+                       cache_len=S + 1, last_only=True)
+        diff = _tree_err([a[0], a[1]], [b[0], b[1]])
+    same = _tree_equal(torch, [a[0], a[1]], [b[0], b[1]])
+    print(f"serve {arch}: member 0 prefilled twice: logits and cache "
+          f"bitwise equal {same} (max abs diff {diff:.3e})")
+    check(same, f"{arch}: two prefills of one member differ by {diff}")
+    del a, b
+
+
+def serve_phase(torch, arch, overrides, kname="flash_attention"):
+    """Two full-width members of `arch` (its depth cut as `overrides`
+    say) served through serve_batch; the prefill layers of the family
+    that run kernel `kname` (kernel_layers) must launch it."""
     import importlib
 
     from repro_torch.configs import get_config
@@ -3172,21 +3362,7 @@ def serve_phase(torch, arch, overrides, kname):
     kernel = importlib.import_module(f"repro_torch.kernels.{kname}.kernel")
     cfg = get_config(arch).replace(**overrides)
     B, S, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
-    torch.cuda.empty_cache()
-    print(f"serve {arch} config:", json.dumps({
-        "serve": dict(SERVE, arch=arch, **overrides), "model": {
-            k: getattr(cfg, k) for k in (
-                "family", "n_layers", "d_model", "n_heads", "n_kv_heads",
-                "head_dim", "d_ff", "vocab", "ssm_state", "ssm_head_dim",
-                "shared_attn_every", "n_shared_attn", "rwkv_head_dim",
-                "attn_impl", "dtype", "source")}}, allow_nan=False))
-    sw = Stopwatch().start()
-    members = [tf.init_params(cfg, torch.Generator(device="cuda")
-                              .manual_seed(seed)) for seed in SERVE["seeds"]]
-    torch.cuda.synchronize()
-    n_par = sum(p.numel() for p in members[0].parameters())
-    print(f"serve {arch}: {len(members)} members of {n_par} parameters "
-          f"initialised on the card in {sw.stop():.3f} s")
+    members = serve_members(torch, arch, cfg, "serve_batch")
     prompts = torch.as_tensor(next(iter(TokenPipeline(
         cfg.vocab, B, S, seed=0)))["tokens"], device="cuda")
     serve_batch(cfg, members, prompts, gen_len=2)      # warm-up
@@ -3200,9 +3376,9 @@ def serve_phase(torch, arch, overrides, kname):
     total = sw.stop()
     launches = kernel.KERNEL.launches
     peak = torch.cuda.max_memory_allocated()
-    expect = cfg.n_layers * len(members)
-    print(f"serve {arch}: {kname} launches {launches}, expected n_layers x "
-          f"members = {expect}")
+    expect = kernel_layers(cfg, kname) * len(members)
+    print(f"serve {arch}: {kname} launches {launches}, expected its layers "
+          f"x members = {expect}")
     check(launches == expect, f"{kname} launched {launches} times in "
                               f"serve_batch of {arch}, expected {expect}")
     check(tuple(toks.shape) == (B, G) and toks.dtype == torch.int32
@@ -3230,6 +3406,9 @@ def serve_phase(torch, arch, overrides, kname):
     print(f"serve {arch}: weights [1, 0] == member 0 alone: {same}")
     check(same, f"{arch}: serve_batch with weights [1, 0] differs from "
                 "member 0 served alone")
+    del solo, masked
+    if cfg.n_experts:
+        moe_repeat_check(torch, cfg, members[0], prompts, arch)
     profile_serve(torch, cfg, members, prompts, toks, f"serve {arch}")
 
     finite = True
@@ -3246,22 +3425,200 @@ def serve_phase(torch, arch, overrides, kname):
           f"logit of both members finite: {finite}")
     check(finite, f"{arch}: non-finite logits")
 
-    if cfg.attn_impl == "pallas":
-        with torch.inference_mode():
-            probs = {}
-            for impl in ("pallas", "xla"):
-                logits, _ = tf.forward(members[0],
-                                       cfg.replace(attn_impl=impl), prompts,
-                                       last_only=True)
-                probs[impl] = torch.softmax(logits[:, -1].float(), dim=-1)
-            gap = float((probs["pallas"] - probs["xla"]).abs().max())
-            agree = bool(torch.equal(probs["pallas"].argmax(-1),
-                                     probs["xla"].argmax(-1)))
-        print(f"serve {arch}: member 0 last-position probabilities, pallas "
-              f"vs xla prefill: max abs diff {gap:.3e} (largest probability "
-              f"{float(probs['xla'].max()):.3e}); same argmax: {agree}")
-        check(gap < 1e-2, f"pallas and xla prefill disagree: {gap}")
-    del members, solo, masked, prompts
+    if expect and kname == "flash_attention":
+        pallas_vs_xla(torch, cfg, members[0], {"tokens": prompts}, arch)
+    del members, prompts
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pallas_vs_xla(torch, cfg, member, batch, arch):
+    """Member 0's last-position probabilities from a prefill with
+    flash_attention ("pallas") and with the plain chunked path ("xla")."""
+    from repro_torch.launch.steps import make_prefill_step
+    with torch.inference_mode():
+        probs = {}
+        for impl in ("pallas", "xla"):
+            logits, cache = make_prefill_step(cfg.replace(attn_impl=impl))(
+                member, batch)
+            probs[impl] = torch.softmax(logits.float(), dim=-1)
+            del logits, cache
+        gap = float((probs["pallas"] - probs["xla"]).abs().max())
+        agree = bool(torch.equal(probs["pallas"].argmax(-1),
+                                 probs["xla"].argmax(-1)))
+    print(f"serve {arch}: member 0 last-position probabilities, pallas "
+          f"vs xla prefill: max abs diff {gap:.3e} (largest probability "
+          f"{float(probs['xla'].max()):.3e}); same argmax: {agree}")
+    check(gap < 1e-2, f"pallas and xla prefill disagree: {gap}")
+
+
+def step_serve(torch, cfg, members, batch, gen_len):
+    """FedPAE soft-vote greedy generation through the step functions, as
+    the reference's dry run uses them: make_prefill_step on `batch`
+    (tokens, and vlm's img_emb), then gen_len - 1 make_serve_step calls
+    a member; the members' probabilities are averaged equally, and audio
+    is greedy per codebook. Returns (B, gen_len) int32 tokens, or
+    (B, gen_len, ncb) for audio."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    S = batch["tokens"].shape[1]
+    prefill = make_prefill_step(cfg, cache_len=S + gen_len)
+    serve_step = make_serve_step(cfg)
+
+    def vote(logits_of):
+        prob = sum(torch.softmax(lg.float(), dim=-1) for lg in logits_of)
+        return torch.argmax(prob / len(logits_of), dim=-1)[:, None].to(
+            torch.int32)
+    with torch.inference_mode():
+        caches, logits = [], []
+        for m in members:
+            lg, cache = prefill(m, batch)
+            caches.append(cache)
+            logits.append(lg)
+        tok = vote(logits)
+        out = [tok]
+        for g in range(1, gen_len):
+            logits = []
+            for i, m in enumerate(members):
+                lg, caches[i] = serve_step(m, {"tokens": tok,
+                                               "cache": caches[i],
+                                               "t": S + g - 1})
+                logits.append(lg)
+            tok = vote(logits)
+            out.append(tok)
+    return torch.cat(out, dim=1)
+
+
+def profile_steps(torch, cfg, members, batch, arch):
+    """Under torch.profiler: every member's make_prefill_step (device busy
+    share, the largest kernels), then one make_serve_step of member 0
+    (busy share, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.obs.metrics import Stopwatch
+    S = batch["tokens"].shape[1]
+    prefill = make_prefill_step(cfg, cache_len=S + 2)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sw = Stopwatch().start()
+            for m in members:
+                logits, cache = prefill(m, batch)
+                del cache
+            torch.cuda.synchronize()
+            wall = sw.stop()
+        profile_report(prof, wall, f"serve {arch}: profiled prefill steps "
+                       "(both members)", top=8)
+        logits, cache = prefill(members[0], batch)
+        tok = torch.argmax(logits.float(), dim=-1)[:, None].to(torch.int32)
+        step = make_serve_step(cfg)
+        step(members[0], {"tokens": tok, "cache": cache, "t": S})
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sw = Stopwatch().start()
+            step(members[0], {"tokens": tok, "cache": cache, "t": S + 1})
+            torch.cuda.synchronize()
+            wall = sw.stop()
+        del cache, logits
+    profile_report(prof, wall, f"serve {arch}: profiled serve step (one "
+                   "member)")
+
+
+def step_serve_phase(torch, arch):
+    """Two full-width members of the vlm or audio `arch` served through
+    make_prefill_step and make_serve_step (step_serve), vlm with image
+    embeddings (B, n_img_tokens, d_vision) from a seed, audio with
+    (B, S, ncb) codebook prompts; every self-attention prefill layer runs
+    flash_attention. vlm is then served text-only through serve_batch,
+    where its cross layers run the kernel too."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.obs.metrics import Stopwatch
+
+    cfg = get_config(arch).replace(**PALLAS)
+    B, S, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
+    members = serve_members(torch, arch, cfg, "make_prefill_step + "
+                            "make_serve_step")
+    toks, img = zoo_inputs(cfg, B, S, 0, "cuda")
+    batch = {"tokens": toks, "img_emb": img}
+    step_serve(torch, cfg, members, batch, 2)          # warm-up
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    kernel.KERNEL.launches = 0
+    sw = Stopwatch().start()
+    out = step_serve(torch, cfg, members, batch, G)
+    torch.cuda.synchronize()
+    total = sw.stop()
+    launches = kernel.KERNEL.launches
+    peak = torch.cuda.max_memory_allocated()
+    expect = kernel_layers(cfg, "flash_attention", img is not None) \
+        * len(members)
+    print(f"serve {arch}: flash_attention launches {launches}, expected "
+          f"self-attention layers x members = {expect}")
+    check(launches == expect, f"flash_attention launched {launches} times "
+                              f"in the step serving of {arch}, expected "
+                              f"{expect}")
+    shape = (B, G, cfg.n_codebooks) if cfg.n_codebooks else (B, G)
+    check(tuple(out.shape) == shape and out.dtype == torch.int32
+          and int(out.min()) >= 0 and int(out.max()) < cfg.vocab,
+          f"bad served tokens: shape {tuple(out.shape)}, range "
+          f"[{int(out.min())}, {int(out.max())}]")
+    sw = Stopwatch().start()
+    step_serve(torch, cfg, members, batch, 1)          # prefill only
+    torch.cuda.synchronize()
+    prefill = sw.stop()
+    per = B * (cfg.n_codebooks or 1)
+    print(f"serve {arch}: {B} x {S} prompts"
+          + (f" with {cfg.n_img_tokens} image tokens a row" if img is not None
+             else f" of {cfg.n_codebooks} codebooks") +
+          f", {G} steps: a call {total:.6f} s; prefill {prefill:.6f} s "
+          f"({B * S * len(members) / prefill:.1f} prompt positions/s over "
+          f"both members); decode {total - prefill:.6f} s, "
+          f"{B * (G - 1) / (total - prefill):.3f} generated positions/s "
+          f"({per * (G - 1) / (total - prefill):.3f} tokens/s); peak device "
+          f"memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    print(f"serve {arch}: tokens", out.cpu().tolist())
+    profile_steps(torch, cfg, members, batch, arch)
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    finite = True
+    with torch.inference_mode():
+        for m in members:
+            logits, cache = make_prefill_step(cfg, cache_len=S + 1)(m, batch)
+            step, _ = make_serve_step(cfg)(m, {
+                "tokens": out[:, :1].contiguous(), "cache": cache, "t": S})
+            finite &= bool(torch.isfinite(logits).all()) \
+                and bool(torch.isfinite(step).all())
+            del logits, cache, step
+    print(f"serve {arch}: every last-position prefill logit and serve-step "
+          f"logit of both members finite: {finite}")
+    check(finite, f"{arch}: non-finite logits")
+    pallas_vs_xla(torch, cfg, members[0], batch, arch)
+
+    launches = {"steps": launches}
+    if cfg.family == "vlm":
+        kernel.KERNEL.launches = 0
+        sw = Stopwatch().start()
+        text = serve_batch(cfg, members, toks, gen_len=G)
+        torch.cuda.synchronize()
+        secs = sw.stop()
+        launches["serve_batch"] = kernel.KERNEL.launches
+        expect = kernel_layers(cfg, "flash_attention") * len(members)
+        print(f"serve {arch}: text-only serve_batch (no images, as the "
+              f"reference's): {secs:.6f} s a call, flash_attention launches "
+              f"{launches['serve_batch']}, expected every layer x members = "
+              f"{expect}; tokens {text.cpu().tolist()}")
+        check(launches["serve_batch"] == expect and tuple(text.shape) ==
+              (B, G) and int(text.min()) >= 0 and int(text.max()) < cfg.vocab,
+              f"{arch}: text-only serve_batch launched flash_attention "
+              f"{launches['serve_batch']} times (expected {expect}) or gave "
+              f"bad tokens")
+        del text
+    del members, batch, toks, img, out
     torch.cuda.empty_cache()
     return launches
 
@@ -3321,7 +3678,8 @@ def main() -> int:
     max_err = max(max_err, path_err)
     timings.update({("batched",) + k: v for k, v in path_timings.items()})
     torch.cuda.empty_cache()
-    flash = flash_phase(torch)[SLICE_SHAPE]
+    flash_timings = flash_phase(torch)
+    flash = flash_timings[SLICE_SHAPE]
     scans = scan_phase(torch)
     bwd = wkv_bwd_phase(torch)
     ssd_bwd = ssd_bwd_phase(torch)
@@ -3329,6 +3687,13 @@ def main() -> int:
     train_check_phase(torch)
     served = {kname: serve_phase(torch, arch, overrides, kname)
               for arch, overrides, kname in SERVES}
+    flash_paths = {"llama3-8b serve_batch": served["flash_attention"]}
+    for arch, overrides in ZOO_SERVES:
+        flash_paths[f"{arch} serve_batch"] = serve_phase(torch, arch,
+                                                         overrides)
+    for arch in ZOO_STEP_SERVES:
+        for path, n in step_serve_phase(torch, arch).items():
+            flash_paths[f"{arch} {path}"] = n
     trained = {arch: full_train_phase(torch, arch, n_layers)
                for arch, n_layers in TRAINS.items()}
     check(trained["rwkv6-3b"]["bwd"] > 0, "wkv_scan_bwd did not launch in "
@@ -3369,7 +3734,11 @@ def main() -> int:
         "launches": served["flash_attention"], "max_abs_err": flash["err"],
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
-        "library_ms": flash["library_ms"]}] + [{
+        "library_ms": flash["library_ms"],
+        "launches_by_path": flash_paths,
+        "by_shape": {str(shape): {k: t[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            for shape, t in flash_timings.items()}}] + [{
         "name": kname, "route": "cuda",
         "source": f"src/repro_torch/csrc/{kname}.cu",
         "replaces": f"src/repro/kernels/{kname}/kernel.py:{line}",

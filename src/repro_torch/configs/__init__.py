@@ -2,10 +2,11 @@
 per architecture, `get_config(name)` for the full-scale config and
 `get_smoke(name)` for the reduced same-family variant of the CPU tests.
 
-The dense (llama3-8b, qwen2.5-3b, gemma2-27b), ssm (rwkv6-3b) and hybrid
-(zamba2-7b) families are ported, and so is "paper-cnn" (the paper's
-FedPAE scale, `paper_cnn.py`). Every other architecture of the
-reference's list raises NotImplementedError (ROADMAP.md queue 1).
+Every architecture of the reference's list is ported: the dense
+(llama3-8b, qwen2.5-3b, gemma2-27b, command-r-plus-104b), moe
+(qwen3-moe-235b-a22b, arctic-480b), ssm (rwkv6-3b), hybrid (zamba2-7b),
+vlm (llama-3.2-vision-11b) and audio (musicgen-medium) families, and
+"paper-cnn" (the paper's FedPAE scale, `paper_cnn.py`).
 """
 from __future__ import annotations
 
@@ -24,18 +25,12 @@ ARCHS = [
     "llama3-8b",
     "paper-cnn",  # the paper's own experimental scale (FedPAE on CNN bench)
 ]
-PORTED = ("llama3-8b", "qwen2.5-3b", "gemma2-27b", "rwkv6-3b", "zamba2-7b",
-          "paper-cnn")
 
 
 def _mod(name: str):
     if name not in ARCHS:
         raise ValueError(f"unknown architecture {name!r}; choose from "
                          f"{ARCHS}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ported: {PORTED}); "
-            "see ROADMAP.md queue 1")
     return importlib.import_module(
         "repro_torch.configs." + name.replace("-", "_").replace(".", "_"))
 

@@ -9,13 +9,24 @@ paper's soft-vote inference path at LLM scale). Port of
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \
         --device cpu
 
-`serve_batch` serves every ported family through `transformer.forward`.
-Its prefill runs the family's kernel on CUDA tensors and the kernel's
-plain version on CPU tensors: with `attn_impl="pallas"` every dense
-attention layer runs flash_attention; every rwkv6 layer runs wkv_scan
-and every zamba2 Mamba2 layer ssd_scan (zamba2's shared attention keeps
-its config's plain "xla" path). Decode is plain PyTorch, as in the
-reference.
+`serve_batch` serves token prompts through `transformer.forward`, as
+the reference's does. Its prefill runs the family's kernel on CUDA
+tensors and the kernel's plain version on CPU tensors: with
+`attn_impl="pallas"` every self-attention layer of the kv_major configs
+(dense, moe, vlm, audio) runs flash_attention (the g_major
+qwen3-moe-235b-a22b takes the plain path, as in the reference); every
+rwkv6 layer runs wkv_scan and every zamba2 Mamba2 layer ssd_scan
+(zamba2's shared attention keeps its config's plain "xla" path). Decode
+is plain PyTorch, as in the reference. Two families keep the
+reference's limits:
+- vlm is served text-only: no image embeddings reach `forward`, so each
+  cross layer attends causally to its own input in the prefill (through
+  flash_attention under "pallas") and keeps those keys and values as its
+  static decode cache;
+- audio is refused: `B, S = prompts.shape` does not take its (B, S, ncb)
+  prompts (a ValueError).
+Images and codebooks are served through `launch/steps.py`'s prefill and
+serve steps.
 """
 from __future__ import annotations
 

@@ -5,10 +5,11 @@ A train step updates the parameters and the optimizer state in place
 and returns the loss. Microbatches are the reference's strided split of
 the batch (row i goes to microbatch i % microbatches), with fp32
 gradient accumulation; with one microbatch the gradients keep the
-parameters' dtype, as `jax.value_and_grad` gives them. The dense, ssm
-(rwkv6) and hybrid (zamba2) families train, on the card through the
-scans' CUDA backward kernels (wkv_scan_bwd, ssd_scan_bwd). The MoE
-router's aux loss is not ported (the moe family raises).
+parameters' dtype, as `jax.value_and_grad` gives them. Every family
+trains: the ssm (rwkv6) and hybrid (zamba2) ones on the card through the
+scans' CUDA backward kernels (wkv_scan_bwd, ssd_scan_bwd), the moe
+family with 0.01 x the router's load-balance aux loss added, the vlm
+family with the batch's `img_emb`.
 """
 from __future__ import annotations
 
@@ -33,17 +34,18 @@ def choose_optimizer(cfg: ModelConfig, n_params: int):
 
 def make_train_step(cfg: ModelConfig, opt, lr_fn, microbatches: int = 1):
     """Returns train_step(params, opt_state, batch) -> loss (a 0-d fp32
-    tensor). `batch` holds `tokens` and `labels`, (B, S) tensors on the
-    parameters' device, B a multiple of `microbatches`. `lr_fn` gets the
-    optimizer's step count before the update."""
-    if cfg.family == "moe" or cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: training the moe family needs the router's aux "
-            "loss, which is not ported (ROADMAP.md queue 1)")
+    tensor). `batch` holds `tokens` and `labels`, (B, S) tensors ((B, S,
+    ncb) for audio) on the parameters' device, B a multiple of
+    `microbatches`, and for vlm `img_emb`. `lr_fn` gets the optimizer's
+    step count before the update."""
 
     def loss_fn(params, b):
-        logits, _ = tf.forward(params, cfg, b["tokens"], mode="train")
-        return cross_entropy(logits, b["labels"], cfg.final_logit_softcap)
+        logits, extra = tf.forward(params, cfg, b["tokens"], mode="train",
+                                   img_emb=b.get("img_emb"))
+        loss = cross_entropy(logits, b["labels"], cfg.final_logit_softcap)
+        if cfg.n_experts and extra is not None:
+            loss = loss + 0.01 * extra  # router load-balance aux
+        return loss
 
     def grads_of(loss, leaves):
         gs = torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -81,8 +83,9 @@ def make_prefill_step(cfg: ModelConfig, cache_len: int = 0,
                       last_only: bool = True):
     def prefill_step(params, batch):
         logits, cache = tf.forward(params, cfg, batch["tokens"],
-                                   mode="prefill", cache_len=cache_len,
-                                   last_only=last_only)
+                                   mode="prefill", img_emb=batch.get(
+                                       "img_emb"),
+                                   cache_len=cache_len, last_only=last_only)
         return logits[:, -1], cache
 
     return prefill_step

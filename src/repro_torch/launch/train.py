@@ -7,11 +7,12 @@
 Presets scale the architecture's family down while keeping its
 structure, as the reference's do; `full` is the architecture's own
 config (on the card). Entry points run on `cuda` unless asked for the
-CPU, and raise without CUDA. The dense, ssm (rwkv6) and hybrid (zamba2)
-families train; on the card every rwkv6 layer's scan runs the wkv_scan
-kernel forward and its backward kernel, and every Mamba2 layer's the
-ssd_scan kernel and its backward kernel. Checkpoints go through
-`repro_torch.checkpoint` in the reference's format.
+CPU, and raise without CUDA. Every family trains; on the card every
+rwkv6 layer's scan runs the wkv_scan kernel forward and its backward
+kernel, and every Mamba2 layer's the ssd_scan kernel and its backward
+kernel. vlm batches carry zero image embeddings, as the reference's.
+Checkpoints go through `repro_torch.checkpoint` in the reference's
+format.
 """
 from __future__ import annotations
 
@@ -43,10 +44,15 @@ def scaled_config(arch: str, preset: str):
         return get_smoke(arch)
     if preset == "full":
         return get_config(arch)
-    base = get_smoke(arch)  # family structure (ssm flags etc.)
+    base = get_smoke(arch)  # family structure (moe/ssm flags etc.)
     kw = dict(PRESETS[preset])
     if base.family == "hybrid":
         kw["shared_attn_every"] = 2
+    if base.family == "vlm":
+        kw["cross_attn_every"] = 2
+    if base.n_experts:
+        kw["n_experts"] = 8
+        kw["d_ff"] = kw["d_ff"] // 4
     if base.family == "ssm":
         kw.pop("n_heads", None), kw.pop("n_kv_heads", None)
     return base.replace(**kw)
@@ -86,6 +92,10 @@ def train(arch: str, preset: str, steps: int, batch: int, seq: int,
         sw.start()
         b = {k: torch.as_tensor(hb[k], device=device)
              for k in ("tokens", "labels")}
+        if cfg.family == "vlm":
+            b["img_emb"] = torch.zeros((batch, cfg.n_img_tokens,
+                                        cfg.d_vision), dtype=torch.bfloat16,
+                                       device=device)
         losses.append(float(step_fn(params, opt_state, b)))
         seconds.append(sw.stop())
         if step % log_every == 0 or step == steps - 1:

@@ -10,7 +10,10 @@ A ring buffer (sliding-window decode) is just `slot = t % S_cache`.
 Unlike the reference, `fill_kv_cache` and `attn_decode` write the cache
 IN PLACE and return the same dict: a decode step then writes one slot
 instead of copying a cache that is a gigabyte at full width.
-Cross-attention (`kv_emb`) is not ported and raises.
+Cross-attention (`kv_emb`, the vlm family's image layers) projects keys
+and values from the image embeddings, with no RoPE and no causal mask,
+and always takes the plain core; its decode cache is "static": read,
+never written.
 """
 from __future__ import annotations
 
@@ -27,12 +30,10 @@ from .common import (ModelConfig, Params, apply_rope, dense_init, init_rms,
 NEG_INF = -2.0 ** 30
 
 
-def _no_cross():
-    return NotImplementedError("cross-attention (kv_emb) is not ported; see "
-                               "ROADMAP.md queue 1")
-
-
-def init_attn(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def init_attn(cfg: ModelConfig, gen: torch.Generator,
+              cross: bool = False) -> Params:
+    """`cross` makes the same shapes: cross-attention consumes image
+    embeddings already projected to d_model."""
     d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     p = {
         "wq": dense_init(gen, (d, H * hd), 0, cfg.cdtype),
@@ -113,19 +114,26 @@ def attn_core(q, k, v, q_pos, k_pos, window, attn_softcap, causal=True,
 
 
 def attn_forward(p, cfg: ModelConfig, x, positions, window=0, kv_emb=None):
-    """Full-sequence causal self-attention (train / prefill). Returns
-    (out, (k, v))."""
-    if kv_emb is not None:
-        raise _no_cross()
+    """Full-sequence attention (train / prefill). Returns (out, (k, v)).
+
+    kv_emb: if given, the cross-attention source (B, T_img, d_model):
+    not causal, no RoPE, always the plain core (as the reference, whose
+    kernel branch needs kv_emb None)."""
     B, S, _ = x.shape
     q = _project_q(p, cfg, x)
-    k, v = _project_kv(p, cfg, x)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    k_pos = positions if positions.dim() == 1 else positions[0]
+    if kv_emb is None:
+        k, v = _project_kv(p, cfg, x)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        k_pos = positions if positions.dim() == 1 else positions[0]
+        causal = True
+    else:
+        k, v = _project_kv(p, cfg, kv_emb)
+        k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
+        causal = False
 
     g_major = cfg.gqa_layout == "g_major"
-    if cfg.attn_impl == "pallas" and cfg.gqa_layout == "kv_major":
+    if cfg.attn_impl == "pallas" and causal and cfg.gqa_layout == "kv_major":
         # As the reference (attention.py:128): only a static int window
         # reaches the kernel. Inside `transformer.forward` the window is
         # always a tensor, so that path applies no per-layer window.
@@ -134,7 +142,7 @@ def attn_forward(p, cfg: ModelConfig, x, positions, window=0, kv_emb=None):
                               softcap=float(cfg.attn_logit_softcap))
         return out.reshape(B, S, -1) @ p["wo"], (k, v)
     chunk = cfg.attn_chunk
-    if chunk and S > chunk and S % chunk == 0:
+    if chunk and S > chunk and S % chunk == 0 and causal:
         # As the reference (attention.py:140-146), each query chunk is
         # checkpointed when a gradient may be taken: the backward then
         # holds one chunk's fp32 scores instead of all of them.
@@ -147,7 +155,7 @@ def attn_forward(p, cfg: ModelConfig, x, positions, window=0, kv_emb=None):
                          for i in range(0, S, chunk)], dim=1)
     else:
         out = attn_core(q, k, v, positions, k_pos, window,
-                        cfg.attn_logit_softcap, True, g_major=g_major)
+                        cfg.attn_logit_softcap, causal, g_major=g_major)
     return out.reshape(B, S, -1) @ p["wo"], (k, v)
 
 
@@ -182,10 +190,18 @@ def attn_decode(p, cfg: ModelConfig, x, t, cache, window=0, kv_emb=None):
 
     Returns (out (B, 1, d), cache), the cache written in place. Ring-
     buffer semantics when the cache is shorter than t (sliding window).
+    A cache marked "static" (cross-attention) holds the image keys and
+    values: read with no RoPE and no mask, never written.
     """
-    if kv_emb is not None or "static" in cache:
-        raise _no_cross()
     B = x.shape[0]
+    if kv_emb is not None or "static" in cache:
+        k, v = cache["k"], cache["v"]
+        q = _project_q(p, cfg, x)
+        k_pos = torch.arange(k.shape[1], dtype=torch.int32, device=x.device)
+        out = attn_core(q, k, v, torch.zeros((1,), dtype=torch.int32,
+                                             device=x.device),
+                        k_pos, 0, cfg.attn_logit_softcap, causal=False)
+        return out.reshape(B, 1, -1) @ p["wo"], cache
     t = int(t)
     q = _project_q(p, cfg, x)
     k_new, v_new = _project_kv(p, cfg, x)

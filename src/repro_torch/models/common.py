@@ -21,8 +21,7 @@ from torch import nn
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """One config describes any architecture of the reference's pool
-    (same fields and defaults as `repro.models.common.ModelConfig`; the
-    port runs the dense, ssm and hybrid families)."""
+    (same fields and defaults as `repro.models.common.ModelConfig`)."""
 
     name: str = "model"
     family: str = "dense"  # dense | moe | ssm | hybrid | vlm | audio

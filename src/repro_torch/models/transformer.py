@@ -1,6 +1,8 @@
 """Model assembly (port of `repro/models/transformer.py`) for the dense,
-ssm (RWKV6) and hybrid (Zamba2: Mamba2 blocks with shared attention)
-families, with three execution modes:
+moe, ssm (RWKV6), hybrid (Zamba2: Mamba2 blocks with shared attention),
+vlm (cross-attention to image embeddings every `cross_attn_every`-th
+layer) and audio (parallel codebooks) families, with three execution
+modes:
 
   train   — full-sequence forward, logits for the loss
   prefill — full-sequence forward, logits + populated decode caches
@@ -11,11 +13,12 @@ the port holds them in `nn.ModuleList`s and loops. As the reference
 rematerialises every block in train mode (`jax.checkpoint` in
 `_scan_stack`), the port wraps each block in train mode, with grad on,
 in `torch.utils.checkpoint` (non-reentrant): the backward keeps a
-block's input and recomputes the rest. The other families (moe, vlm,
-audio) are not ported and raise. `params_from_jax` loads the
+block's input and recomputes the rest. `params_from_jax` loads the
 reference's parameter tree and `params_to_jax` gives it back.
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -23,20 +26,32 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
+from . import moe as moe_mod
 from . import rwkv as rwkv_mod
 from . import ssm as ssm_mod
 from .common import (ModelConfig, Params, dense_init, init_mlp, init_rms,
                      mlp_apply, rms_norm)
 
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+# Families whose blocks form one `layers` stack: attention + MLP blocks
+# (ATTN_STACKED), or RWKV6 blocks (ssm).
+ATTN_STACKED = ("dense", "moe", "audio")
+STACKED = ATTN_STACKED + ("ssm",)
 
 
-def _ported_only(cfg: ModelConfig):
+def _known(cfg: ModelConfig):
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.name}) is not ported; "
-            f"{FAMILIES} are (see ROADMAP.md queue 1)")
+        raise ValueError(f"unknown model family {cfg.family!r} "
+                         f"({cfg.name}); choose from {FAMILIES}")
+
+
+def _vlm_dims(cfg: ModelConfig):
+    """(n_super, period): `n_super` super-blocks of period - 1 self-
+    attention blocks, each followed by a cross-attention block (the
+    layers past n_super * period are not built, as in the reference)."""
+    period = cfg.cross_attn_every
+    return cfg.n_layers // period, period
 
 
 def _hybrid_dims(cfg: ModelConfig):
@@ -52,12 +67,14 @@ def _hybrid_dims(cfg: ModelConfig):
 # block init / apply (attention + FFN)
 # ---------------------------------------------------------------------------
 
-def init_attn_mlp_block(cfg: ModelConfig, gen: torch.Generator) -> Params:
+def init_attn_mlp_block(cfg: ModelConfig, gen: torch.Generator,
+                        cross: bool = False,
+                        use_moe: bool = False) -> Params:
     p = {
         "ln1": init_rms(cfg.d_model, gen.device),
         "ln2": init_rms(cfg.d_model, gen.device),
-        "attn": attn.init_attn(cfg, gen),
-        "ffn": init_mlp(cfg, gen),
+        "attn": attn.init_attn(cfg, gen, cross=cross),
+        "ffn": moe_mod.init_moe(cfg, gen) if use_moe else init_mlp(cfg, gen),
     }
     if cfg.post_block_norms:
         p["ln1_post"] = init_rms(cfg.d_model, gen.device)
@@ -65,20 +82,33 @@ def init_attn_mlp_block(cfg: ModelConfig, gen: torch.Generator) -> Params:
     return Params(p)
 
 
-def attn_mlp_block(p, cfg: ModelConfig, x, ctx, cache):
-    """ctx: dict(mode, positions, t, window, cache_len). Returns (x,
-    new_cache)."""
+def attn_mlp_block(p, cfg: ModelConfig, x, ctx, cache, *, cross=False,
+                   use_moe=False):
+    """ctx: dict(mode, positions, t, window, img_emb, cache_len). Returns
+    (x, new_cache); in train mode the MoE block returns its router aux
+    loss in the cache's place. A cross block attends to ctx["img_emb"]
+    (to its own input when that is None, as the reference's text-only
+    serving does) and keeps the projected keys and values as its static
+    decode cache."""
     mode = ctx["mode"]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     window = ctx.get("window", 0)
     if mode == "decode":
-        a, new_cache = attn.attn_decode(p["attn"], cfg, h, ctx["t"], cache,
-                                        window=window)
+        if cross:
+            a, _ = attn.attn_decode(p["attn"], cfg, h, ctx["t"],
+                                    dict(cache, static=True))
+            new_cache = cache
+        else:
+            a, new_cache = attn.attn_decode(p["attn"], cfg, h, ctx["t"],
+                                            cache, window=window)
     else:
+        kv_emb = ctx.get("img_emb") if cross else None
         a, (k, v) = attn.attn_forward(p["attn"], cfg, h, ctx["positions"],
-                                      window=window)
+                                      window=window, kv_emb=kv_emb)
         new_cache = None
-        if mode == "prefill":
+        if mode == "prefill" and cross:
+            new_cache = {"k": k, "v": v}
+        elif mode == "prefill":
             clen = ctx["cache_len"]
             S_full = k.shape[1]
             new_cache = attn.fill_kv_cache(
@@ -89,7 +119,12 @@ def attn_mlp_block(p, cfg: ModelConfig, x, ctx, cache):
         a = rms_norm(a, p["ln1_post"], cfg.norm_eps)
     x = x + a
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    f = mlp_apply(p["ffn"], cfg, h2)
+    if use_moe and mode == "train":
+        f, new_cache = moe_mod.moe_ffn(p["ffn"], cfg, h2, with_aux=True)
+    elif use_moe:
+        f = moe_mod.moe_ffn(p["ffn"], cfg, h2)
+    else:
+        f = mlp_apply(p["ffn"], cfg, h2)
     if "ln2_post" in p:
         f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
     return x + f, new_cache
@@ -124,17 +159,34 @@ def init_ssm_block(cfg: ModelConfig, gen: torch.Generator) -> Params:
 # ---------------------------------------------------------------------------
 
 def init_embed(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    p = {"embed": dense_init(gen, (cfg.vocab, cfg.d_model), 1, cfg.cdtype)}
-    if not cfg.tie_embeddings:
-        p["head"] = dense_init(gen, (cfg.d_model, cfg.vocab), 0, cfg.cdtype)
+    """embed (V, d) [+ head (d, V)]; audio: a (V, d) embedding a codebook,
+    stacked (ncb, V, d), and a head (ncb, d, V); vlm adds `img_proj`
+    (d_vision, d_model). Fan-ins as the reference's."""
+    V, d = cfg.vocab, cfg.d_model
+    if cfg.n_codebooks:
+        p = {"embed": torch.stack([dense_init(gen, (V, d), 0, cfg.cdtype)
+                                   for _ in range(cfg.n_codebooks)]),
+             "head": dense_init(gen, (cfg.n_codebooks, d, V), 1,
+                                cfg.cdtype)}
+    else:
+        p = {"embed": dense_init(gen, (V, d), 1, cfg.cdtype)}
+        if not cfg.tie_embeddings:
+            p["head"] = dense_init(gen, (d, V), 0, cfg.cdtype)
+    if cfg.d_vision:
+        p["img_proj"] = dense_init(gen, (cfg.d_vision, d), 0, cfg.cdtype)
     return Params(p)
 
 
 def embed_tokens(p, cfg: ModelConfig, tokens):
+    if cfg.n_codebooks:  # tokens (B, S, ncb): the codebooks' embeddings summed
+        return sum(p["embed"][n][tokens[..., n].long()]
+                   for n in range(cfg.n_codebooks))
     return p["embed"][tokens.long()]
 
 
 def logits_head(p, cfg: ModelConfig, x):
+    if cfg.n_codebooks:  # (B, S, ncb, V)
+        return torch.einsum("bsd,ndv->bsnv", x, p["head"])
     if cfg.tie_embeddings:
         return x @ p["embed"].T
     return x @ p["head"]
@@ -146,19 +198,29 @@ def logits_head(p, cfg: ModelConfig, x):
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random parameters drawn from `gen`, on the generator's device: a
-    module holding `embed` (embed [+ head]), `final_norm` and the
-    family's blocks, named as the reference's tree: `layers` (dense: one
-    attention block each; ssm: {"rwkv": ...} each) or, for hybrid,
-    `m_main` (n_super lists of SSM blocks), `m_tail` and `shared_attn`."""
-    _ported_only(cfg)
+    module holding `embed` (embed [+ head] [+ img_proj]), `final_norm`
+    and the family's blocks, named as the reference's tree: `layers`
+    (dense and audio: one attention block each; moe: the same with an
+    MoE ffn; ssm: {"rwkv": ...} each); for hybrid `m_main` (n_super
+    lists of SSM blocks), `m_tail` and `shared_attn`; for vlm
+    `self_layers` (n_super lists of period - 1 blocks) and
+    `cross_layers` (n_super blocks)."""
+    _known(cfg)
     p = {"embed": init_embed(cfg, gen),
          "final_norm": init_rms(cfg.d_model, gen.device)}
 
     def stack(init, n):
         return nn.ModuleList([init() for _ in range(n)])
-    if cfg.family == "dense":
-        p["layers"] = stack(lambda: init_attn_mlp_block(cfg, gen),
-                            cfg.n_layers)
+    if cfg.family in ATTN_STACKED:
+        use_moe = cfg.family == "moe"
+        p["layers"] = stack(lambda: init_attn_mlp_block(
+            cfg, gen, use_moe=use_moe), cfg.n_layers)
+    elif cfg.family == "vlm":
+        n_super, period = _vlm_dims(cfg)
+        p["self_layers"] = stack(lambda: stack(
+            lambda: init_attn_mlp_block(cfg, gen), period - 1), n_super)
+        p["cross_layers"] = stack(
+            lambda: init_attn_mlp_block(cfg, gen, cross=True), n_super)
     elif cfg.family == "ssm":
         p["layers"] = stack(
             lambda: Params({"rwkv": rwkv_mod.init_rwkv(cfg, gen)}),
@@ -214,15 +276,24 @@ def _blocks(tree, n: int, what: str) -> nn.ModuleList:
 
 def params_from_jax(cfg: ModelConfig, params_np: dict) -> Params:
     """The reference's nested parameter dict (numpy arrays, the block
-    axes stacked first: `layers` (n_layers), or for hybrid `m_main`
+    axes stacked first: `layers` (n_layers); for hybrid `m_main`
     (n_super, shared_attn_every), `m_tail` (n_tail) and `shared_attn`
-    (n_shared_attn)) -> a port module on the CPU with the same weights
-    and dtypes."""
-    _ported_only(cfg)
+    (n_shared_attn); for vlm `self_layers` (n_super, period - 1) and
+    `cross_layers` (n_super)) -> a port module on the CPU with the same
+    weights and dtypes."""
+    _known(cfg)
     p = {"embed": _tree(params_np["embed"]),
          "final_norm": _leaf(params_np["final_norm"])}
-    if cfg.family in ("dense", "ssm"):
+    if cfg.family in STACKED:
         p["layers"] = _blocks(params_np["layers"], cfg.n_layers, "layers")
+    elif cfg.family == "vlm":
+        n_super, period = _vlm_dims(cfg)
+        p["self_layers"] = nn.ModuleList([
+            _blocks(t, period - 1, f"self_layers[{i}]") for i, t in
+            enumerate(_split(params_np["self_layers"], n_super,
+                             "self_layers"))])
+        p["cross_layers"] = _blocks(params_np["cross_layers"], n_super,
+                                    "cross_layers")
     else:
         n_super, every, n_tail = _hybrid_dims(cfg)
         p["m_main"] = nn.ModuleList([
@@ -254,15 +325,20 @@ def params_to_jax(cfg: ModelConfig, params) -> dict:
     """The inverse of `params_from_jax`: a port module -> the reference's
     nested parameter dict with the block axes stacked first (`layers`
     (n_layers, ...); hybrid `m_main` (n_super, shared_attn_every, ...),
-    `m_tail`, `shared_attn`). Leaves are CPU tensors in the parameters'
+    `m_tail`, `shared_attn`; vlm `self_layers` (n_super, period - 1,
+    ...), `cross_layers`). Leaves are CPU tensors in the parameters'
     dtypes (numpy has no bf16 of its own); `checkpoint.save_pytree`
     writes them as the reference writes its arrays."""
-    _ported_only(cfg)
+    _known(cfg)
     out = {"embed": _module_tree(params["embed"]),
            "final_norm": params["final_norm"].detach().cpu()}
     blocks = lambda ms: _stacked([_module_tree(m) for m in ms])  # noqa: E731
-    if cfg.family in ("dense", "ssm"):
+    if cfg.family in STACKED:
         out["layers"] = blocks(params["layers"])
+    elif cfg.family == "vlm":
+        out["self_layers"] = _stacked([blocks(s)
+                                       for s in params["self_layers"]])
+        out["cross_layers"] = blocks(params["cross_layers"])
     else:
         out["m_main"] = _stacked([blocks(s) for s in params["m_main"]])
         if "m_tail" in params:
@@ -272,14 +348,26 @@ def params_to_jax(cfg: ModelConfig, params) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, device=None):
-    """Decode cache (zeros): dense {"kv": one KV cache a layer}; ssm
-    {"state": one RWKV state a layer}; hybrid {"m_main": n_super lists of
-    SSM states, "attn_kv": one KV cache a super-block, "m_tail": ...}."""
-    _ported_only(cfg)
+    """Decode cache (zeros; `device="meta"` gives shapes only): dense, moe
+    and audio {"kv": one KV cache a layer}; ssm {"state": one RWKV state
+    a layer}; hybrid {"m_main": n_super lists of SSM states, "attn_kv":
+    one KV cache a super-block, "m_tail": ...}; vlm {"self_kv": n_super
+    lists of period - 1 KV caches, "cross_kv": one {"k", "v"} of
+    n_img_tokens a super-block}."""
+    _known(cfg)
     kv = lambda: attn.init_kv_cache(cfg, batch, cache_len,  # noqa: E731
                                     device=device)
-    if cfg.family == "dense":
+    if cfg.family in ATTN_STACKED:
         return {"kv": [kv() for _ in range(cfg.n_layers)]}
+    if cfg.family == "vlm":
+        n_super, period = _vlm_dims(cfg)
+        img = (batch, cfg.n_img_tokens, cfg.n_kv_heads, cfg.hd)
+        return {"self_kv": [[kv() for _ in range(period - 1)]
+                            for _ in range(n_super)],
+                "cross_kv": [{n: torch.zeros(img, dtype=cfg.cdtype,
+                                             device=device)
+                              for n in ("k", "v")}
+                             for _ in range(n_super)]}
     if cfg.family == "ssm":
         return {"state": [rwkv_mod.init_rwkv_state(cfg, batch, device)
                           for _ in range(cfg.n_layers)]}
@@ -311,40 +399,72 @@ def _layer_windows(cfg: ModelConfig, device=None):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
-            cache=None, t=None, cache_len: int = 0, last_only: bool = False):
-    """Returns (logits, new_cache).
+            cache=None, t=None, img_emb=None, cache_len: int = 0,
+            last_only: bool = False):
+    """Returns (logits, new_cache); in train mode the moe family returns
+    the layers' mean router aux loss in the cache's place.
 
-    tokens: (B, S) integer tensor. For decode, S == 1 and `t` is the
-    absolute position; `cache` is the decode cache, written in place.
+    tokens: (B, S) integer tensor ((B, S, ncb) for audio). For decode,
+    S == 1 and `t` is the absolute position; `cache` is the decode cache,
+    written in place. img_emb: (B, n_img_tokens, d_vision) image
+    embeddings for the vlm family's cross layers (projected through
+    `img_proj`); without them a cross layer attends to its own input.
     """
-    _ported_only(cfg)
+    _known(cfg)
     B, S = tokens.shape[:2]
     x = embed_tokens(params["embed"], cfg, tokens)
+    if img_emb is not None and "img_proj" in params["embed"]:
+        img_emb = img_emb.to(cfg.cdtype) @ params["embed"]["img_proj"]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    ctx = {"mode": mode, "positions": positions, "t": t,
+    ctx = {"mode": mode, "positions": positions, "t": t, "img_emb": img_emb,
            "cache_len": cache_len or (cfg.decode_window or S)}
     keep = mode in ("prefill", "decode")
     new_cache = None
     remat = mode == "train" and torch.is_grad_enabled()
 
-    def run(block, p, x, c, state):
+    def run(block, p, x, c, state, aux=False):
         """block(p, cfg, x, c, state) -> (x, new state). In train mode
         with grad on, under a non-reentrant checkpoint (the reference's
-        remat); the state it returns is not kept."""
+        remat); the state it returns is not kept, unless `aux` (the MoE
+        block's router aux loss)."""
         if not remat:
             return block(p, cfg, x, c, state)
+        if aux:
+            return checkpoint(lambda h: block(p, cfg, h, c, state), x,
+                              use_reentrant=False)
         return checkpoint(lambda h: block(p, cfg, h, c, state)[0], x,
                           use_reentrant=False), None
-    if cfg.family == "dense":
+    if cfg.family in ATTN_STACKED:
         windows = _layer_windows(cfg, x.device)
+        use_moe = cfg.family == "moe"
+        block = functools.partial(attn_mlp_block, use_moe=use_moe)
         kv_out = []
         for i, p_l in enumerate(params["layers"]):
             cache_l = cache["kv"][i] if cache is not None else None
-            x, kv = run(attn_mlp_block, p_l, x,
-                        dict(ctx, window=windows[i]), cache_l)
+            x, kv = run(block, p_l, x, dict(ctx, window=windows[i]),
+                        cache_l, aux=use_moe)
             kv_out.append(kv)
         if keep:
             new_cache = {"kv": kv_out}
+        elif use_moe:
+            new_cache = torch.mean(torch.stack(kv_out))  # router aux loss
+    elif cfg.family == "vlm":
+        cross = functools.partial(attn_mlp_block, cross=True)
+        self_out, cross_out = [], []
+        for i, (p_s, p_c) in enumerate(zip(params["self_layers"],
+                                           params["cross_layers"])):
+            kvs = cache["self_kv"][i] if cache is not None \
+                else [None] * len(p_s)
+            outs = []
+            for p_l, kv_l in zip(p_s, kvs):
+                x, kv = run(attn_mlp_block, p_l, x, ctx, kv_l)
+                outs.append(kv)
+            self_out.append(outs)
+            x, kv = run(cross, p_c, x, ctx,
+                        cache["cross_kv"][i] if cache is not None else None)
+            cross_out.append(kv)
+        if keep:
+            new_cache = {"self_kv": self_out, "cross_kv": cross_out}
     elif cfg.family == "ssm":
         st_out = []
         for i, p_l in enumerate(params["layers"]):

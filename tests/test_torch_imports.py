@@ -5,10 +5,11 @@ validation gate and one serving queries through a label shift (the
 fault, admission, serving and dynamic-selection modules), one on the
 compiled array world with the restack selection path, a two-round
 baseline (FML) with the clustered-gossip saving, a tiny ensemble
-`serve_batch` of
-each ported model family (dense llama3-8b, ssm rwkv6-3b, hybrid
-zamba2-7b) and two training steps of smoke qwen2.5-3b and rwkv6-3b with
-a checkpoint on the CPU loads neither JAX nor any module of the
+`serve_batch` of the dense llama3-8b, ssm rwkv6-3b, hybrid zamba2-7b and
+moe qwen3-moe-235b-a22b families, one prefill and decode step of the
+vlm llama-3.2-vision-11b (with images) and the audio musicgen-medium
+(with codebooks) and two training steps of smoke qwen2.5-3b and rwkv6-3b
+with a checkpoint on the CPU loads neither JAX nor any module of the
 reference package `repro`."""
 import os
 import subprocess
@@ -94,13 +95,26 @@ from repro_torch.configs import get_smoke
 from repro_torch.launch.serve import serve_batch
 from repro_torch.models.transformer import init_params
 for arch, kw in (("llama3-8b", {"attn_impl": "pallas"}), ("rwkv6-3b", {}),
-                 ("zamba2-7b", {})):
+                 ("zamba2-7b", {}), ("qwen3-moe-235b-a22b", {})):
     cfg = get_smoke(arch).replace(dtype="float32", **kw)
     members = [init_params(cfg, torch.Generator().manual_seed(i))
                for i in range(2)]
     toks = serve_batch(cfg, members, torch.zeros((2, 8), dtype=torch.int32),
                        gen_len=3)
     assert toks.shape == (2, 3)
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
+for arch in ("llama-3.2-vision-11b", "musicgen-medium"):
+    cfg = get_smoke(arch).replace(dtype="float32", attn_impl="pallas")
+    model = init_params(cfg, torch.Generator().manual_seed(0))
+    shp = (2, 8, cfg.n_codebooks) if cfg.n_codebooks else (2, 8)
+    batch = {"tokens": torch.zeros(shp, dtype=torch.int32)}
+    if cfg.d_vision:
+        batch["img_emb"] = torch.ones((2, cfg.n_img_tokens, cfg.d_vision))
+    with torch.no_grad():
+        logits, cache = make_prefill_step(cfg, cache_len=9)(model, batch)
+        step, _ = make_serve_step(cfg)(model, {
+            "tokens": batch["tokens"][:, :1], "cache": cache, "t": 8})
+    assert step.shape == logits.shape and torch.isfinite(step).all()
 import tempfile
 from repro_torch.launch.train import train
 for arch in ("qwen2.5-3b", "rwkv6-3b"):

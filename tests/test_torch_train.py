@@ -305,10 +305,3 @@ def test_train_n_layers_cuts_the_depth():
     assert cfg.n_layers == 3
     assert len(params["m_main"]) == 1 and len(params["m_tail"]) == 1
     assert all(np.isfinite(losses))
-
-
-def test_train_step_refuses_moe():
-    cfg = get_smoke("qwen2.5-3b").replace(n_experts=4, top_k=2)
-    with pytest.raises(NotImplementedError, match="aux loss"):
-        tsteps.make_train_step(cfg, topt.make_optimizer("sgd"),
-                               tsched.constant(0.1))
