@@ -260,7 +260,8 @@
    prompts, 16 generated tokens. The kernel's launch count is reset
    just before the run and must come out at n_layers x members (64, 64,
    162); the tokens must be (4, 16) and inside the vocabulary; weights
-   [1, 0] must give member 0's own tokens; every last-position prefill
+   [1, 0] must give member 0's own tokens (4 of them: the decodes are
+   host-bound); every last-position prefill
    logit and one decode step's logits must be finite. Reports prefill
    seconds, decode tokens/s, peak memory (each phase frees the previous
    one's members first), the device's busy share of the prefill (with
@@ -277,17 +278,35 @@
    with image embeddings (4, 1600, 1280) from a seed (flash on its 32
    self-attention layers: 64) and then text-only through serve_batch
    (every layer: 80), musicgen on (4, 2048, 4) codebook prompts (96).
-11. Train, in turn: `train()` of qwen2.5-3b and rwkv6-3b at full width
-   and depth, zamba2-7b at full width and 45 of its 81 layers (for
-   memory: 7 super-blocks of 6 Mamba2 blocks and a tail of 3) and
-   qwen3-moe-235b-a22b at full width and 1 of its 94 layers (then its
-   cross-entropy and router aux on a held-out batch), bf16,
-   random weights from seed 0, adamw (weight decay 0.01) and
+10b. Multi-device (launch/mesh.py, launch/fedpae_pods.py, the MoE's mesh
+   branch) over NCCL at a world of one rank a card (in this process at
+   one card; its world size and backend printed first). Pods: a (pod
+   world, data 1, model 1) mesh, each pod's llama3-8b member (full width
+   and depth, "pallas", seed = its pod) sent round the ring once by
+   pod_ring_exchange (bytes and ms printed; at one card a device copy,
+   not a link rate): the received parameters must equal the sender's
+   bitwise; then one chromosome-weighted ensemble vote on 4 x 2048
+   prompts, whose flash_attention launches (count reset just before)
+   must be n_layers (32), and which at one pod must equal the member's
+   own softmax bitwise. MoE: qwen3-moe-235b-a22b at 6 layers on a (data
+   1, model world) mesh, each rank its experts (moe.local_experts): a
+   prefill through the mesh= branch must equal the mesh=None prefill
+   (bitwise at one rank, else within MULTI_TOL) and repeat bitwise; one
+   train step at 1 layer (cell 22's batch) on the mesh must equal the
+   unmeshed step (loss and every parameter after it; bitwise at one
+   rank). The group is destroyed when the phase ends.
+11. Train, in turn: `train()` of qwen2.5-3b at full width and 18 of its
+   36 layers, rwkv6-3b at full width and 16 of its 32 (the script's time
+   limit: train() draws its weights on the host), zamba2-7b at full
+   width and 21 of its 81 layers (3 super-blocks of 6 Mamba2 blocks and
+   a tail of 3) and qwen3-moe-235b-a22b at full width and 1 of its 94
+   layers (then its cross-entropy and router aux on a held-out batch),
+   bf16, random weights from seed 0, adamw (weight decay 0.01) and
    warmup_cosine, 6 steps of 4 x 2048 tokens from TokenPipeline(seed=0)
    in 2 microbatches. The scan kernels' counts are reset just before
-   each run: rwkv6-3b must launch wkv_scan 32 x 2 x 2 and wkv_scan_bwd
-   32 x 2 times a step, zamba2-7b ssd_scan 45 x 2 x 2 and ssd_scan_bwd
-   45 x 2, 6 steps in all. Reports every loss (all finite), step seconds
+   each run: rwkv6-3b must launch wkv_scan 16 x 2 x 2 and wkv_scan_bwd
+   16 x 2 times a step, zamba2-7b ssd_scan 21 x 2 x 2 and ssd_scan_bwd
+   21 x 2, 6 steps in all. Reports every loss (all finite), step seconds
    (as train() returns them), tokens/s over steps 2-6, peak device
    memory and the launches, then one more step under torch.profiler by
    kernel, with the scan kernels' share of it.
@@ -298,7 +317,8 @@
    configurations 10-12 included, configuration 15's select, the
    restack select and the tables' smoke grid, `by_shape` the timings at
    every path's shape; flash_attention's `launches` is llama3-8b's
-   serve_batch, its `launches_by_path` every serving path's, its
+   serve_batch, its `launches_by_path` every serving path's and the pod
+   vote's, its
    `by_shape` every timed shape's), then the result line.
 
 Exits non-zero at the first failure, and when no CUDA device is present.
@@ -314,6 +334,7 @@ import json
 import math
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -331,8 +352,10 @@ ZAMBA_ATTN_SHAPE = (4, 32, 32, 2048, 2048, 112)   # its shared attention
 SHARE_MAX = 1.05     # a kernel faster than its bound means a wrong bound
 SHARES = {}          # what -> share of bound, every one printed
 CARD = ""            # nvidia-smi's name and power limit, printed beside times
+PHASE_SECONDS = {}   # phase -> wall seconds, printed before the kernels line
 SERVE = {"seeds": [0, 1], "batch": 4, "prompt_len": 2048,
          "gen_len": 16}                                    # a member a seed
+SERVE_CHECK_GEN = 4   # tokens of the weights-[1, 0] check (host-bound)
 SERVES = [  # (arch, config overrides, the kernel package its prefill runs)
     ("llama3-8b", {"attn_impl": "pallas"}, "flash_attention"),
     ("rwkv6-3b", {}, "wkv_scan"),
@@ -442,6 +465,15 @@ def share(what: str, bound_ms: float, ms: float) -> float:
     check(SHARES[what] <= SHARE_MAX, f"{what}: share of bound "
           f"{SHARES[what]:.4f} above {SHARE_MAX}: the bound is no floor")
     return SHARES[what]
+
+
+def timed(name, fn, *args):
+    """fn(*args), its wall seconds printed and kept in PHASE_SECONDS."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 3)
+    print(f"phase {name}: {PHASE_SECONDS[name]} s")
+    return out
 
 
 def nvidia_smi(query: str) -> str:
@@ -807,14 +839,11 @@ def profile_select(torch, engine):
         wall_d, _, n_d, _ = _profiled_select(torch, engine)
     finally:
         selection._eval_fn = current
-    wall2, _, n2, _ = _profiled_select(torch, engine)
     print(f"profiled select() with the dense form's per-call wrapper on "
           f"the same data: wall {wall_d:.6f} s, {n_d} kernel launches; "
-          f"with the gather form's again: wall {wall2:.6f} s, {n2} "
-          f"launches; the gather form launches {n_d - n} and {n_d - n2} "
-          "fewer (2 x 201 expected)")
-    check(min(n_d - n, n_d - n2) >= 201, f"select() saves {n_d - n} and "
-          f"{n_d - n2} launches, expected at least 201 (the diag(S) copies)")
+          f"the gather form launches {n_d - n} fewer (2 x 201 expected)")
+    check(n_d - n >= 201, f"select() saves {n_d - n} launches, expected "
+          "at least 201 (the diag(S) copies)")
 
 
 class StubServing:
@@ -2925,15 +2954,22 @@ TRAIN_GRAD_TOL = 1e-4      # card against CPU, each parameter's first-step
                            # gradient, of its max |g|
 TRAIN_FULL = {"steps": 6, "batch": 4, "seq": 2048, "microbatches": 2,
               "seed": 0}
-TRAINS = {  # arch -> n_layers: the depth cut for memory
-    "qwen2.5-3b": None, "rwkv6-3b": None, "zamba2-7b": 45,
+TRAINS = {  # arch -> n_layers: the depth cut (REDUCED_TRAIN says why)
+    "qwen2.5-3b": 18, "rwkv6-3b": 16, "zamba2-7b": 21,
     "qwen3-moe-235b-a22b": 1}
 TRAIN_CHECKS = ["qwen2.5-3b", "rwkv6-3b", "zamba2-7b", "qwen3-moe-235b-a22b",
                 "llama-3.2-vision-11b", "musicgen-medium"]
-REDUCED_TRAIN = {"zamba2-7b": "n_layers 81 -> 45 (7 super-blocks of 6 "
+# train() draws its weights on the host, some 15-20 s a billion parameters
+# there: at full depth the first three took 205 s of the script's limit
+REDUCED_TRAIN = {"qwen2.5-3b": "n_layers 36 -> 18: the script's time "
+                               "limit (the host's weight draw)",
+                 "rwkv6-3b": "n_layers 32 -> 16: the script's time limit "
+                             "(the host's weight draw)",
+                 "zamba2-7b": "n_layers 81 -> 21 (3 super-blocks of 6 "
                  "Mamba2 blocks and a tail of 3, both shared attention "
                  "blocks in use): 6956658896 parameters with adamw's fp32 "
-                 "moments and gradients do not fit one 80 GB card",
+                 "moments and gradients do not fit one 80 GB card (45 "
+                 "layers do), and the script's time limit",
                  "qwen3-moe-235b-a22b": "n_layers 94 -> 1: 3.73e9 "
                  "parameters x 16 bytes (bf16 weights, fp32 moments and "
                  "accumulator, bf16 gradients) = 59.7 GB beside the "
@@ -3399,8 +3435,8 @@ def serve_phase(torch, arch, overrides, kname="flash_attention"):
           f"({peak / 2**30:.2f} GiB)")
     print(f"serve {arch}: tokens", toks.cpu().tolist())
 
-    solo = serve_batch(cfg, members[:1], prompts, gen_len=G)
-    masked = serve_batch(cfg, members, prompts, gen_len=G,
+    solo = serve_batch(cfg, members[:1], prompts, gen_len=SERVE_CHECK_GEN)
+    masked = serve_batch(cfg, members, prompts, gen_len=SERVE_CHECK_GEN,
                          weights=[1.0, 0.0])
     same = bool(torch.equal(solo, masked))
     print(f"serve {arch}: weights [1, 0] == member 0 alone: {same}")
@@ -3623,6 +3659,274 @@ def step_serve_phase(torch, arch):
     return launches
 
 
+# ---- multi-device: FedPAE's pod primitives and the expert-parallel MoE ----
+
+MULTI_POD = ("llama3-8b", PALLAS)    # a pod's member, full width and depth
+MULTI_MOE = ("qwen3-moe-235b-a22b", 6)   # cell 17's depth cut
+MULTI_TRAIN_LAYERS = 1                   # cell 22's
+MULTI_LR = 3e-4    # the train step's (not warmup_cosine's first step, lr 0)
+MULTI_TOL = 1e-2   # mesh vs no mesh above one rank, probabilities and
+                   # parameters (bf16; the combine sums in another order)
+MULTI_LOSS_RTOL = 1e-3
+
+
+def _ms(torch, fn):
+    """(fn(), its ms on the card by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _draw(torch, cfg, seed):
+    from repro_torch.models import transformer as tf
+    member = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed))
+    torch.cuda.empty_cache()    # the draws' fp32 temporaries
+    return member
+
+
+def pod_path(torch, rank, world, say):
+    """The pods' ring exchange and ensemble vote: one pod a rank, each
+    holding the llama3-8b member drawn from its pod's seed."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.launch import fedpae_pods
+    from repro_torch.models import transformer as tf
+
+    arch, overrides = MULTI_POD
+    cfg = get_config(arch).replace(**overrides)
+    mesh = init_device_mesh("cuda", (world, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+    member = _draw(torch, cfg, rank)
+    n_bytes = sum(t.numel() * t.element_size() for t in member.parameters())
+    fedpae_pods.pod_ring_exchange(member, mesh)          # warm-up
+    torch.cuda.empty_cache()
+    got, ms = _ms(torch, lambda: fedpae_pods.pod_ring_exchange(member,
+                                                               mesh))
+    sender = member if world == 1 else _draw(torch, cfg, (rank - 1) % world)
+    want = dict(sender.named_parameters())
+    same = all(torch.equal(t, want[n]) and t.dtype == want[n].dtype
+               for n, t in got.named_parameters())
+    what = ("a device copy through the one-rank pod group, not a link "
+            "rate" if world == 1 else f"over {world} ranks")
+    say(f"multi-device pods [{CARD}]: {arch} member ({n_bytes} bytes) "
+        f"through pod_ring_exchange in {ms:.6f} ms ({what}; "
+        f"{n_bytes / ms / 1e6:.3f} GB/s); received == pod "
+        f"{(rank - 1) % world}'s member bitwise: {same}")
+    check(same, f"pod {rank}: the exchanged parameters differ from the "
+                "sender's")
+    del got, sender, want
+    torch.cuda.empty_cache()
+
+    B, S = SERVE["batch"], SERVE["prompt_len"]
+    toks = torch.as_tensor(next(iter(TokenPipeline(cfg.vocab, B, S,
+                                                   seed=0)))["tokens"],
+                           device="cuda")
+    step = fedpae_pods.make_ensemble_serve_step(cfg, mesh)
+    with torch.inference_mode():
+        step(member, 1.0, toks)                          # warm-up
+        kernel.KERNEL.launches = 0
+        vote, vote_ms = _ms(torch, lambda: step(member, 1.0, toks))
+        launches = kernel.KERNEL.launches
+        own = torch.softmax(tf.forward(member, cfg, toks, mode="train",
+                                       last_only=True)[0].float(), dim=-1)
+    finite = bool(torch.isfinite(vote).all())
+    gap = float((vote - own).abs().max())
+    say(f"multi-device pods [{CARD}]: ensemble vote of {world} pod(s) on "
+        f"{B} x {S} prompts in {vote_ms:.6f} ms, shape {tuple(vote.shape)}, "
+        f"finite {finite}; flash_attention launches {launches} (expected "
+        f"n_layers = {cfg.n_layers}); max |vote - own softmax| {gap:.3e}")
+    check(launches == cfg.n_layers, f"the pod vote launched flash_attention "
+          f"{launches} times, expected {cfg.n_layers}")
+    check(finite and tuple(vote.shape) == (B, 1, cfg.vocab),
+          f"bad vote: shape {tuple(vote.shape)}, finite {finite}")
+    if world == 1:
+        check(torch.equal(vote, own), "at one pod the vote is not the "
+              f"member's own softmax (max abs diff {gap})")
+    dist.barrier()
+    del member, vote, own
+    torch.cuda.empty_cache()
+    return {"launches": launches, "exchange_ms": ms, "vote_ms": vote_ms}
+
+
+def moe_mesh_path(torch, rank, world, say):
+    """qwen3-moe-235b-a22b's expert-parallel branch on a (data 1, model
+    world) mesh: prefill against mesh=None and twice; one train step at
+    1 layer against the unmeshed step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import moe
+    from repro_torch.optim import constant
+
+    arch, n_layers = MULTI_MOE
+    cfg = get_config(arch).replace(**PALLAS, n_layers=n_layers)
+    mesh = mesh_mod.make_host_mesh(1, world)
+    B, S = SERVE["batch"], SERVE["prompt_len"]
+    axes = mesh_mod.batch_axes(mesh, B)
+    toks = torch.as_tensor(next(iter(TokenPipeline(cfg.vocab, B, S,
+                                                   seed=0)))["tokens"],
+                           device="cuda")
+    batch = {"tokens": toks}
+    plain = steps_mod.make_prefill_step(cfg, cache_len=S + 1)
+    meshed = steps_mod.make_prefill_step(cfg, mesh=mesh, batch_axes=axes,
+                                         cache_len=S + 1)
+    full = _draw(torch, cfg, 0)
+    with torch.inference_mode():
+        want = plain(full, batch)
+    local = moe.local_experts(full, cfg, mesh)
+    del full
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        meshed(local, batch)                              # warm-up
+        a, prefill_ms = _ms(torch, lambda: meshed(local, batch))
+        b = meshed(local, batch)
+    repeat = _tree_equal(torch, list(a), list(b))
+    gap = _tree_err(list(a), list(want))
+    same = _tree_equal(torch, list(a), list(want))
+    p_gap = float((torch.softmax(a[0].float(), -1) - torch.softmax(
+        want[0].float(), -1)).abs().max())
+    say(f"multi-device moe [{CARD}]: {arch} at {n_layers} layers, experts "
+        f"split over a {world}-way model axis: a mesh prefill of {B} x {S} "
+        f"in {prefill_ms:.6f} ms; logits and cache equal to the mesh=None "
+        f"prefill's bitwise {same} (max abs diff {gap:.3e}; last-position "
+        f"probabilities {p_gap:.3e}); two mesh prefills bitwise equal "
+        f"{repeat}")
+    check(repeat, f"two mesh prefills of {arch} differ")
+    check(same if world == 1 else p_gap < MULTI_TOL,
+          f"the mesh prefill differs from mesh=None by {gap} (logits), "
+          f"{p_gap} (probabilities)")
+    del local, a, b, want
+    torch.cuda.empty_cache()
+
+    c = TRAIN_FULL
+    tcfg = cfg.replace(n_layers=MULTI_TRAIN_LAYERS)
+    hb = next(iter(TokenPipeline(tcfg.vocab, c["batch"], c["seq"],
+                                 seed=c["seed"])))
+    tb = {k: torch.as_tensor(hb[k], device="cuda") for k in ("tokens",
+                                                             "labels")}
+    axes = mesh_mod.batch_axes(mesh, c["batch"])
+    runs = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        params = _draw(torch, tcfg, c["seed"])
+        if m is not None:
+            params = moe.local_experts(params, tcfg, m)
+            torch.cuda.empty_cache()
+        opt = steps_mod.choose_optimizer(tcfg, steps_mod.count_params(
+            params, m))
+        state = opt.init(dict(params.named_parameters()))
+        step = steps_mod.make_train_step(
+            tcfg, opt, constant(MULTI_LR), mesh=m, batch_axes=axes,
+            microbatches=c["microbatches"])
+        loss, ms = _ms(torch, lambda: float(step(params, state, tb)))
+        leaves = dict(params.named_parameters())
+        if m is not None:
+            leaves.update(moe.gather_experts(params, tcfg, m))
+        runs[name] = {"loss": loss, "ms": ms, "opt": opt.name, "leaves": {
+            k: t.detach().cpu() for k, t in leaves.items()}}
+        del params, state, opt, step, leaves
+        torch.cuda.empty_cache()
+    p, q = runs["plain"], runs["mesh"]
+    same = p["loss"] == q["loss"] and all(
+        torch.equal(t, q["leaves"][k]) for k, t in p["leaves"].items())
+    gap = 0.0 if same else max(
+        float((t.float() - q["leaves"][k].float()).abs().max())
+        for k, t in p["leaves"].items())
+    say(f"multi-device moe [{CARD}]: one {p['opt']} train step (lr "
+        f"{MULTI_LR}) at {MULTI_TRAIN_LAYERS} layer, {c['batch']} x "
+        f"{c['seq']} tokens in "
+        f"{c['microbatches']} microbatches: loss {p['loss']!r} unmeshed in "
+        f"{p['ms']:.6f} ms (the process's first train step at this width: "
+        f"warm-up included), {q['loss']!r} on the mesh in {q['ms']:.6f} "
+        "ms; "
+        f"parameters after it bitwise equal {same} (max abs diff "
+        f"{gap:.3e})")
+    check(same if world == 1 else (
+        abs(p["loss"] - q["loss"]) <= MULTI_LOSS_RTOL * abs(p["loss"])
+        and gap < MULTI_TOL),
+        f"the mesh train step differs from the unmeshed one: loss "
+        f"{q['loss']} against {p['loss']}, parameters by {gap}")
+    return {"prefill_ms": prefill_ms, "train_ms": q["ms"]}
+
+
+def multidevice_rank(rank, world, init_method, card):
+    """One rank of the multi-device phase on card `rank`: the pod path,
+    then the MoE path, over NCCL; returns rank 0's counts."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_mod
+    global CARD
+    CARD = card
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_mod.init_world("cuda", rank=rank, world_size=world,
+                        init_method=init_method, timeout=600)
+    say = print if rank == 0 else (lambda *a, **kw: None)
+    try:
+        say(f"multi-device [{CARD}]: world {dist.get_world_size()}, backend "
+            f"{dist.get_backend()}, rank {rank} on "
+            f"{torch.cuda.get_device_name(torch.cuda.current_device())}")
+        out = {"pods": pod_path(torch, rank, world, say)}
+        out["moe"] = moe_mesh_path(torch, rank, world, say)
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _multidevice_child(rank, world, init_method, card, queue):
+    out = multidevice_rank(rank, world, init_method, card)
+    queue.put((rank, out))
+
+
+def multidevice_phase(torch):
+    """The multi-device phase over a world of one rank a card: in this
+    process at one card, else one spawned process a card."""
+    import multiprocessing
+    import queue as queue_mod
+    import socket
+    world = torch.cuda.device_count()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        init_method = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+    if world == 1:
+        return multidevice_rank(0, 1, init_method, CARD)
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_multidevice_child, args=(
+        r, world, init_method, CARD, queue)) for r in range(world)]
+    for p in procs:
+        p.start()
+    outs = {}
+    try:
+        while len(outs) < world:
+            try:
+                rank, out = queue.get(timeout=5)
+                outs[rank] = out
+            except queue_mod.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+    finally:
+        for p in procs:
+            p.join(60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    check(codes == [0] * world and len(outs) == world,
+          f"multi-device ranks exited {codes}")
+    return outs[0]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3655,22 +3959,27 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line:
                 print("  ptxas:", line.strip())
 
-    max_err, timings = kernel_phase(torch)
-    training_determinism_phase(torch)
-    launches, sync_exp, sync_res = slice_phase(torch)
-    sync_repeat_phase(torch, sync_res)
-    paper_async = async_paper_phase(torch, sync_exp, sync_res)
-    serve_paper = serve_paper_phase(torch, sync_exp, sync_res)
+    max_err, timings = timed("kernel", kernel_phase, torch)
+    timed("training determinism", training_determinism_phase, torch)
+    launches, sync_exp, sync_res = timed("slice", slice_phase, torch)
+    timed("slice repeat", sync_repeat_phase, torch, sync_res)
+    paper_async = timed("async config 8", async_paper_phase, torch,
+                        sync_exp, sync_res)
+    serve_paper = timed("async config 12", serve_paper_phase, torch,
+                        sync_exp, sync_res)
     restack_shapes, world_shapes = set(), set()
-    restack = restack_phase(torch, sync_res, restack_shapes)
-    tables = tables_phase(torch, sync_exp, sync_res)
+    restack = timed("restack", restack_phase, torch, sync_res,
+                    restack_shapes)
+    tables = timed("tables", tables_phase, torch, sync_exp, sync_res)
     del sync_exp, sync_res
-    gossip = gossip_churn_phase(torch)
-    faults = faults_phase(torch)
-    serve_drift = serve_drift_phase(torch)
-    compiled_fleet_phase(torch)
-    world = compiled_world_phase(torch, world_shapes)
-    path_err, path_timings = fitness_path_phase(torch, {
+    gossip = timed("async config 9", gossip_churn_phase, torch)
+    faults = timed("async config 10", faults_phase, torch)
+    serve_drift = timed("async config 11", serve_drift_phase, torch)
+    timed("compiled configs 13-14", compiled_fleet_phase, torch)
+    world = timed("compiled config 15", compiled_world_phase, torch,
+                  world_shapes)
+    path_err, path_timings = timed("fitness paths", fitness_path_phase,
+                                   torch, {
         "async config 10": faults["shapes"],
         "async config 11": serve_drift.pop("shapes"),
         "async config 12": serve_paper["shapes"],
@@ -3678,29 +3987,35 @@ def main() -> int:
     max_err = max(max_err, path_err)
     timings.update({("batched",) + k: v for k, v in path_timings.items()})
     torch.cuda.empty_cache()
-    flash_timings = flash_phase(torch)
+    flash_timings = timed("flash", flash_phase, torch)
     flash = flash_timings[SLICE_SHAPE]
-    scans = scan_phase(torch)
-    bwd = wkv_bwd_phase(torch)
-    ssd_bwd = ssd_bwd_phase(torch)
-    model_check_phase(torch)
-    train_check_phase(torch)
-    served = {kname: serve_phase(torch, arch, overrides, kname)
+    scans = timed("scans", scan_phase, torch)
+    bwd = timed("wkv_scan_bwd", wkv_bwd_phase, torch)
+    ssd_bwd = timed("ssd_scan_bwd", ssd_bwd_phase, torch)
+    timed("model check", model_check_phase, torch)
+    timed("train check", train_check_phase, torch)
+    served = {kname: timed(f"serve {arch}", serve_phase, torch, arch,
+                           overrides, kname)
               for arch, overrides, kname in SERVES}
     flash_paths = {"llama3-8b serve_batch": served["flash_attention"]}
     for arch, overrides in ZOO_SERVES:
-        flash_paths[f"{arch} serve_batch"] = serve_phase(torch, arch,
-                                                         overrides)
+        flash_paths[f"{arch} serve_batch"] = timed(
+            f"serve {arch}", serve_phase, torch, arch, overrides)
     for arch in ZOO_STEP_SERVES:
-        for path, n in step_serve_phase(torch, arch).items():
+        for path, n in timed(f"serve {arch}", step_serve_phase, torch,
+                             arch).items():
             flash_paths[f"{arch} {path}"] = n
-    trained = {arch: full_train_phase(torch, arch, n_layers)
+    multi = timed("multi-device", multidevice_phase, torch)
+    flash_paths[f"{MULTI_POD[0]} pod vote"] = multi["pods"]["launches"]
+    trained = {arch: timed(f"train {arch}", full_train_phase, torch, arch,
+                           n_layers)
                for arch, n_layers in TRAINS.items()}
     check(trained["rwkv6-3b"]["bwd"] > 0, "wkv_scan_bwd did not launch in "
           "rwkv6-3b training")
     check(trained["zamba2-7b"]["bwd"] > 0, "ssd_scan_bwd did not launch in "
           "zamba2-7b training")
 
+    print("phase seconds:", json.dumps(PHASE_SECONDS))
     k_ms, p_ms, b_ms, b_by = timings[("batched", 32, 200, 100)]
     print(f"shares of bound (every one <= {SHARE_MAX}):",
           json.dumps({k: round(v, 6) for k, v in SHARES.items()}))

@@ -1,5 +1,5 @@
 """Step functions (train / prefill / serve) shared by the trainer and the
-server (port of `repro/launch/steps.py`, without the mesh arguments).
+server (port of `repro/launch/steps.py`).
 
 A train step updates the parameters and the optimizer state in place
 and returns the loss. Microbatches are the reference's strided split of
@@ -10,18 +10,51 @@ trains: the ssm (rwkv6) and hybrid (zamba2) ones on the card through the
 scans' CUDA backward kernels (wkv_scan_bwd, ssd_scan_bwd), the moe
 family with 0.01 x the router's load-balance aux loss added, the vlm
 family with the batch's `img_emb`.
+
+With a `mesh` (`launch/mesh.py`) every rank is given the whole batch
+and takes its contiguous shard over `batch_axes` (the first axis major,
+as a JAX sharding of dim 0); the moe family's experts run expert-
+parallel over `model`, the parameters holding this rank's experts
+(`models.moe.local_experts`). A train step returns the global loss (the
+mean over the `batch_axes` ranks) and averages every gradient over those
+ranks before the update (each leaf is replicated over them; an expert
+leaf keeps its shard over `model`, whose Adafactor clip sums over
+`model`). Prefill and serve steps return this rank's shard of the
+logits and cache.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.mesh import all_reduce_over, batch_shard, mesh_shape
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig, cross_entropy
 from repro_torch.optim import make_optimizer
 
 
-def count_params(params) -> int:
-    return sum(p.numel() for p in params.parameters())
+def _local(x, mesh, batch_axes_):
+    """This rank's contiguous shard of dim 0 of `x` over `batch_axes_`
+    (x itself without a mesh)."""
+    if mesh is None or x is None:
+        return x
+    i, n = batch_shard(mesh, batch_axes_)
+    if x.shape[0] % n:
+        raise ValueError(f"a batch of {x.shape[0]} does not split over "
+                         f"{n} ranks of {batch_axes_}")
+    b = x.shape[0] // n
+    return x[i * b:(i + 1) * b]
+
+
+def count_params(params, mesh=None) -> int:
+    """The model's parameters; under a mesh the expert leaves hold
+    1/n_model of theirs, so they count n_model times."""
+    n = sum(p.numel() for p in params.parameters())
+    if mesh is not None:
+        named = dict(params.named_parameters())
+        n += (mesh_shape(mesh).get("model", 1) - 1) * sum(
+            named[k].numel() for k in moe_mod.expert_names(params))
+    return n
 
 
 def choose_optimizer(cfg: ModelConfig, n_params: int):
@@ -32,16 +65,19 @@ def choose_optimizer(cfg: ModelConfig, n_params: int):
     return make_optimizer("adamw", weight_decay=0.1)
 
 
-def make_train_step(cfg: ModelConfig, opt, lr_fn, microbatches: int = 1):
+def make_train_step(cfg: ModelConfig, opt, lr_fn, mesh=None,
+                    batch_axes=("data",), microbatches: int = 1):
     """Returns train_step(params, opt_state, batch) -> loss (a 0-d fp32
     tensor). `batch` holds `tokens` and `labels`, (B, S) tensors ((B, S,
     ncb) for audio) on the parameters' device, B a multiple of
-    `microbatches`, and for vlm `img_emb`. `lr_fn` gets the optimizer's
-    step count before the update."""
+    `microbatches` (of it times the `batch_axes` ranks under a mesh), and
+    for vlm `img_emb`. `lr_fn` gets the optimizer's step count before the
+    update."""
 
     def loss_fn(params, b):
         logits, extra = tf.forward(params, cfg, b["tokens"], mode="train",
-                                   img_emb=b.get("img_emb"))
+                                   img_emb=b.get("img_emb"), mesh=mesh,
+                                   batch_axes=batch_axes)
         loss = cross_entropy(logits, b["labels"], cfg.final_logit_softcap)
         if cfg.n_experts and extra is not None:
             loss = loss + 0.01 * extra  # router load-balance aux
@@ -55,6 +91,7 @@ def make_train_step(cfg: ModelConfig, opt, lr_fn, microbatches: int = 1):
     def train_step(params, opt_state, batch):
         named = dict(params.named_parameters())
         leaves = list(named.values())
+        batch = {k: _local(v, mesh, batch_axes) for k, v in batch.items()}
         if microbatches > 1:
             loss = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].device)
@@ -72,30 +109,45 @@ def make_train_step(cfg: ModelConfig, opt, lr_fn, microbatches: int = 1):
             loss = loss_fn(params, batch)
             grads = grads_of(loss, leaves)
             loss = loss.detach()
+        split = None
+        if mesh is not None:
+            n = batch_shard(mesh, batch_axes)[1]
+            loss = all_reduce_over(loss.clone(), mesh, batch_axes) / n
+            # in place, a leaf at a time: no second copy of the gradients
+            grads = [all_reduce_over(g.contiguous(), mesh, batch_axes).div_(n)
+                     for g in grads]
+            group = mesh.get_group("model")
+            split = {k: group for k in moe_mod.expert_names(params)}
         lr = lr_fn(opt_state["step"])
-        opt.update(dict(zip(named, grads)), opt_state, named, lr)
+        opt.update(dict(zip(named, grads)), opt_state, named, lr,
+                   split=split)
         return loss
 
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig, cache_len: int = 0,
-                      last_only: bool = True):
+def make_prefill_step(cfg: ModelConfig, mesh=None, batch_axes=("data",),
+                      cache_len: int = 0, last_only: bool = True):
     def prefill_step(params, batch):
-        logits, cache = tf.forward(params, cfg, batch["tokens"],
-                                   mode="prefill", img_emb=batch.get(
-                                       "img_emb"),
-                                   cache_len=cache_len, last_only=last_only)
+        logits, cache = tf.forward(
+            params, cfg, _local(batch["tokens"], mesh, batch_axes),
+            mode="prefill",
+            img_emb=_local(batch.get("img_emb"), mesh, batch_axes),
+            mesh=mesh, batch_axes=batch_axes, cache_len=cache_len,
+            last_only=last_only)
         return logits[:, -1], cache
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig):
+def make_serve_step(cfg: ModelConfig, mesh=None, batch_axes=("data",)):
+    """serve_step(params, batch) with batch {tokens (B, 1) (this rank's
+    shard is taken under a mesh), cache (this rank's), t}."""
     def serve_step(params, batch):
-        logits, new_cache = tf.forward(params, cfg, batch["tokens"],
-                                       mode="decode", cache=batch["cache"],
-                                       t=batch["t"])
+        logits, new_cache = tf.forward(
+            params, cfg, _local(batch["tokens"], mesh, batch_axes),
+            mode="decode", cache=batch["cache"], t=batch["t"], mesh=mesh,
+            batch_axes=batch_axes)
         return logits[:, -1], new_cache
 
     return serve_step

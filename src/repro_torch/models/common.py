@@ -119,6 +119,20 @@ class Params(nn.Module):
         return name in self._parameters or name in self._modules
 
 
+def with_leaves(module: nn.Module, leaves: dict, prefix: str = ""):
+    """A module of `module`'s structure (`Params` and `nn.ModuleList`s)
+    whose parameters are `leaves[name]` by dotted name (no copy: each
+    parameter shares its tensor's storage)."""
+    if isinstance(module, nn.ModuleList):
+        return nn.ModuleList([with_leaves(c, leaves, f"{prefix}{i}.")
+                              for i, c in enumerate(module)])
+    tree = {n: leaves[prefix + n]
+            for n, _ in module.named_parameters(recurse=False)}
+    tree.update({n: with_leaves(c, leaves, f"{prefix}{n}.")
+                 for n, c in module.named_children()})
+    return Params(tree)
+
+
 # ---------------------------------------------------------------------------
 # primitive ops
 # ---------------------------------------------------------------------------

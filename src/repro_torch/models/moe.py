@@ -1,7 +1,6 @@
-"""Mixture-of-Experts layer: top-k routing and capacity-based dispatch
-(port of `repro/models/moe.py`, its single-device branch: `moe_ffn`
-with `mesh=None`; the expert-parallel `shard_map` branch belongs to the
-multi-device launch, which the port does not have yet).
+"""Mixture-of-Experts layer: top-k routing, capacity-based dispatch and
+expert parallelism over the `model` mesh axis (port of
+`repro/models/moe.py`).
 
 Each token picks its top-k experts from fp32 router logits (ties to the
 lower expert index, as `jax.lax.top_k`), the k kept logits softmaxed
@@ -16,15 +15,39 @@ buffer. The port gathers each token's k contributions through the
 inverse map and adds them in ascending slot order (the reference's
 order) in the activation dtype: no atomics, so the sum is bitwise
 repeatable on the card.
+
+Under a mesh (`moe_ffn(..., mesh=...)`, the reference's `shard_map`
+branch) the input is this rank's shard of the batch over `batch_axes`,
+whole over `model`; model rank r holds experts [r E/n, (r+1) E/n)
+(`local_experts`) and dispatches only the choices that land on them,
+with the capacity of its own b_local * S tokens, as the reference inside
+`shard_map`. One all_reduce over `model` combines. The gradients are
+`shard_map`'s transposes: the router and the input enter the expert
+region through an identity whose backward all-reduces over `model`
+(each rank sees only its experts' paths), and the combine's backward is
+the identity. The router's aux loss is computed outside the region from
+batch means taken over `batch_axes`. The reference also has a form for a
+residual sequence-sharded over `model` (an all_gather in, a
+psum_scatter out), the layout GSPMD picks for its sequence-sharded
+training residual; it changes no value, and the port's residual stays
+whole over `model`, so its combine is the one all_reduce.
 """
 from __future__ import annotations
 
 import math
+import re
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.launch.mesh import all_reduce_over, batch_shard, mesh_shape
+from repro_torch.sharding.rules import param_shardings
 
 from .common import (ModelConfig, Params, activation, dense_init, init_mlp,
-                     mlp_apply)
+                     mlp_apply, with_leaves)
+
+# the expert leaves (E leading) that expert parallelism splits over `model`
+_EXPERT = re.compile(r"(^|\.)ffn\.w[gud]$")
 
 
 def _experts(gen: torch.Generator, cfg: ModelConfig, din: int, dout: int):
@@ -66,40 +89,51 @@ def _route(xf, router, k: int):
     return torch.softmax(vals[:, :k], dim=-1), idx[:, :k]
 
 
-def _dispatch_compute(x_flat, p, cfg: ModelConfig, gate_w, gate_idx):
-    """Capacity-gather the tokens for every expert, run them, combine.
+def _dispatch_compute(x_flat, p, cfg: ModelConfig, gate_w, gate_idx,
+                      e_offset: int = 0, n_local: int = 0):
+    """Capacity-gather the tokens for the n_local experts [e_offset,
+    e_offset + n_local) (all E by default) that `p` holds, run them,
+    combine.
 
-    x_flat: (T, d); gate_w / gate_idx: (T, k). Returns (T, d)."""
+    x_flat: (T, d); gate_w / gate_idx: (T, k). Returns (T, d): the
+    contributions of these experts (the rest of a token's choices add
+    zero)."""
     T, d = x_flat.shape
-    k, E = cfg.top_k, cfg.n_experts
+    k = cfg.top_k
+    n_local = n_local or cfg.n_experts
     C = _capacity(T, cfg)
     dev = x_flat.device
-    flat_e = gate_idx.reshape(-1)  # (T*k,) expert ids
+    local_e = gate_idx.reshape(-1) - e_offset  # (T*k,) expert ids here
     flat_w = gate_w.reshape(-1)
+    valid = (local_e >= 0) & (local_e < n_local)
+    key_e = torch.where(valid, local_e, n_local)  # others sort last
     n = T * k
     # a choice's place within its expert: its rank in a stable sort
-    order = torch.sort(flat_e, stable=True).indices
-    sorted_e = flat_e[order]
-    first = torch.searchsorted(sorted_e, torch.arange(E + 1, device=dev),
+    order = torch.sort(key_e, stable=True).indices
+    sorted_e = key_e[order]
+    first = torch.searchsorted(sorted_e, torch.arange(n_local + 1,
+                                                      device=dev),
                                side="left")
     ranks_sorted = torch.arange(n, device=dev) - first[sorted_e]
     pos = torch.empty_like(ranks_sorted).index_put_((order,), ranks_sorted)
-    keep = pos < C
-    # overflowing choices all go to one extra slot, which is dropped
-    slot = torch.where(keep, flat_e * C + pos, E * C)
+    keep = valid & (pos < C)
+    # overflowing and other experts' choices all go to one extra slot,
+    # which is dropped
+    slot = torch.where(keep, local_e * C + pos, n_local * C)
     choice = torch.arange(n, device=dev)
-    token_of = torch.full((E * C + 1,), T, dtype=torch.int64, device=dev)
+    token_of = torch.full((n_local * C + 1,), T, dtype=torch.int64,
+                          device=dev)
     token_of = token_of.index_put((slot,), torch.where(keep, choice // k, T))
-    w_of = torch.zeros((E * C + 1,), dtype=x_flat.dtype, device=dev)
+    w_of = torch.zeros((n_local * C + 1,), dtype=x_flat.dtype, device=dev)
     w_of = w_of.index_put((slot,), torch.where(
         keep, flat_w, 0.0).to(x_flat.dtype))
     token_of, w_of = token_of[:-1], w_of[:-1]
     x_pad = torch.cat([x_flat, x_flat.new_zeros((1, d))], dim=0)
-    xe = x_pad[token_of].reshape(E, C, d)
+    xe = x_pad[token_of].reshape(n_local, C, d)
 
     act = activation(cfg.act)
     h = act(torch.bmm(xe, p["wg"])) * torch.bmm(xe, p["wu"])
-    ye = torch.bmm(h, p["wd"]).reshape(E * C, d) * w_of[:, None]
+    ye = torch.bmm(h, p["wd"]).reshape(n_local * C, d) * w_of[:, None]
     # combine: each token's kept slots in ascending order (dropped
     # choices point at a zero row, last), summed one by one
     ye = torch.cat([ye, ye.new_zeros((1, d))], dim=0)
@@ -110,27 +144,138 @@ def _dispatch_compute(x_flat, p, cfg: ModelConfig, gate_w, gate_idx):
     return out
 
 
-def load_balance_aux(x, router, cfg: ModelConfig):
+class _EnterExperts(torch.autograd.Function):
+    """Identity forward; backward all-reduces the cotangent over the
+    group (the transpose of a replicated input to `shard_map`)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _Combine(torch.autograd.Function):
+    """All-reduce (sum) over the group forward; identity backward (the
+    transpose of a `psum` whose result every rank uses alike)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def expert_names(params) -> list:
+    """The names of the expert leaves ((E, ...) stacks) of a model or an
+    MoE layer's parameters."""
+    return [n for n, _ in params.named_parameters() if _EXPERT.search(n)]
+
+
+def _expert_dims(params, cfg: ModelConfig, mesh) -> dict:
+    """name -> the dim the sharding rules split over `model`, for each
+    expert leaf."""
+    specs = param_shardings(mesh, params, cfg)
+    return {n: specs[n].index("model") for n in expert_names(params)}
+
+
+def local_experts(params, cfg: ModelConfig, mesh):
+    """A copy of `params` (a model's, or any module whose expert leaves
+    are named `...ffn.wg`, `...ffn.wu`, `...ffn.wd`) that holds
+    only this model rank's experts: each expert leaf narrowed to [r E/n,
+    (r+1) E/n) on the dim the rules shard over `model`; the other leaves
+    are shared with `params`."""
+    n = mesh_shape(mesh)["model"]
+    if cfg.n_experts % n:
+        raise ValueError(f"{cfg.n_experts} experts do not split over a "
+                         f"{n}-way model axis")
+    r = mesh.get_local_rank("model")
+    leaves = dict(params.named_parameters())
+    for name, dim in _expert_dims(params, cfg, mesh).items():
+        size = leaves[name].shape[dim] // n
+        leaves[name] = leaves[name].detach().narrow(
+            dim, r * size, size).clone()
+    return with_leaves(params, leaves)
+
+
+def gather_experts(params, cfg: ModelConfig, mesh) -> dict:
+    """The inverse of `local_experts` for the expert leaves: {name: the
+    whole (E, ...) tensor}, gathered over `model` on every rank."""
+    leaves = dict(params.named_parameters())
+    group = mesh.get_group("model")
+    out = {}
+    for name, dim in _expert_dims(params, cfg, mesh).items():
+        t = leaves[name].detach().contiguous()
+        parts = [torch.empty_like(t) for _ in range(
+            dist.get_world_size(group))]
+        dist.all_gather(parts, t, group=group)
+        out[name] = torch.cat(parts, dim=dim)
+    return out
+
+
+def _mesh_experts(p, cfg: ModelConfig, x, mesh):
+    """The expert region under a mesh: this rank's experts on its batch
+    shard, combined over `model`."""
+    n = mesh_shape(mesh)["model"]
+    n_local = cfg.n_experts // n
+    if cfg.n_experts % n or p["wg"].shape[0] != n_local:
+        raise ValueError(f"a {n}-way model axis holds {n_local} of "
+                         f"{cfg.n_experts} experts a rank; the layer has "
+                         f"{p['wg'].shape[0]} (see local_experts)")
+    B, S, d = x.shape
+    group = mesh.get_group("model")
+    xf = _EnterExperts.apply(x, group).reshape(B * S, d)
+    gw, gi = _route(xf, _EnterExperts.apply(p["router"], group), cfg.top_k)
+    out = _dispatch_compute(xf, p, cfg, gw, gi,
+                            mesh.get_local_rank("model") * n_local, n_local)
+    return _Combine.apply(out, group).reshape(B, S, d)
+
+
+def load_balance_aux(x, router, cfg: ModelConfig, mesh=None,
+                     batch_axes=()):
     """Switch-Transformer aux loss: E * sum_e f_e * P_e over the batch
     (f: the fraction of tokens whose top-1 is e, the first index on a
-    tie; P: the mean router probability of e)."""
+    tie; P: the mean router probability of e). Under a mesh both are
+    means over the whole batch, summed over `batch_axes`; the gradient
+    reaches this rank's P as the train step's mean over those ranks
+    expects."""
     logits = x.float() @ router  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
     top1 = torch.argmax(logits, dim=-1)
     f = torch.mean(torch.nn.functional.one_hot(
         top1, cfg.n_experts).float(), dim=(0, 1))  # (E,) dispatch fraction
     P = torch.mean(probs, dim=(0, 1))  # (E,) router mass
+    if mesh is not None and batch_axes:
+        n = batch_shard(mesh, batch_axes)[1]
+        f = all_reduce_over(f.clone(), mesh, batch_axes) / n
+        whole = all_reduce_over(P.detach().clone(), mesh, batch_axes) / n
+        P = P + (whole - P.detach())
     return cfg.n_experts * torch.sum(f * P)
 
 
-def moe_ffn(p, cfg: ModelConfig, x, with_aux: bool = False):
-    """x: (B, S, d) -> (B, S, d), or (out, aux) when `with_aux`."""
+def moe_ffn(p, cfg: ModelConfig, x, mesh=None, batch_axes=("data",),
+            with_aux: bool = False):
+    """x: (B, S, d) -> (B, S, d), or (out, aux) when `with_aux`. With a
+    `mesh`, expert-parallel over its `model` axis: x is this rank's batch
+    shard over `batch_axes` and `p` holds this rank's experts."""
     B, S, d = x.shape
-    xf = x.reshape(B * S, d)
-    gw, gi = _route(xf, p["router"], cfg.top_k)
-    out = _dispatch_compute(xf, p, cfg, gw, gi).reshape(B, S, d)
+    if mesh is None:
+        xf = x.reshape(B * S, d)
+        gw, gi = _route(xf, p["router"], cfg.top_k)
+        out = _dispatch_compute(xf, p, cfg, gw, gi).reshape(B, S, d)
+    else:
+        out = _mesh_experts(p, cfg, x, mesh)
     if "dense" in p:
         out = out + mlp_apply(p["dense"], cfg, x)
     if with_aux:
-        return out, load_balance_aux(x, p["router"], cfg)
+        return out, load_balance_aux(x, p["router"], cfg, mesh, batch_axes)
     return out

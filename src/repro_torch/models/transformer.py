@@ -84,12 +84,12 @@ def init_attn_mlp_block(cfg: ModelConfig, gen: torch.Generator,
 
 def attn_mlp_block(p, cfg: ModelConfig, x, ctx, cache, *, cross=False,
                    use_moe=False):
-    """ctx: dict(mode, positions, t, window, img_emb, cache_len). Returns
-    (x, new_cache); in train mode the MoE block returns its router aux
-    loss in the cache's place. A cross block attends to ctx["img_emb"]
-    (to its own input when that is None, as the reference's text-only
-    serving does) and keeps the projected keys and values as its static
-    decode cache."""
+    """ctx: dict(mode, positions, t, window, img_emb, cache_len, mesh,
+    batch_axes). Returns (x, new_cache); in train mode the MoE block
+    returns its router aux loss in the cache's place. A cross block
+    attends to ctx["img_emb"] (to its own input when that is None, as the
+    reference's text-only serving does) and keeps the projected keys and
+    values as its static decode cache."""
     mode = ctx["mode"]
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     window = ctx.get("window", 0)
@@ -119,10 +119,12 @@ def attn_mlp_block(p, cfg: ModelConfig, x, ctx, cache, *, cross=False,
         a = rms_norm(a, p["ln1_post"], cfg.norm_eps)
     x = x + a
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    if use_moe and mode == "train":
-        f, new_cache = moe_mod.moe_ffn(p["ffn"], cfg, h2, with_aux=True)
-    elif use_moe:
-        f = moe_mod.moe_ffn(p["ffn"], cfg, h2)
+    if use_moe:
+        f = moe_mod.moe_ffn(p["ffn"], cfg, h2, mesh=ctx["mesh"],
+                            batch_axes=ctx["batch_axes"],
+                            with_aux=mode == "train")
+        if mode == "train":
+            f, new_cache = f
     else:
         f = mlp_apply(p["ffn"], cfg, h2)
     if "ln2_post" in p:
@@ -399,7 +401,8 @@ def _layer_windows(cfg: ModelConfig, device=None):
 
 
 def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
-            cache=None, t=None, img_emb=None, cache_len: int = 0,
+            cache=None, t=None, img_emb=None, mesh=None,
+            batch_axes=("data",), cache_len: int = 0,
             last_only: bool = False):
     """Returns (logits, new_cache); in train mode the moe family returns
     the layers' mean router aux loss in the cache's place.
@@ -409,6 +412,12 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     written in place. img_emb: (B, n_img_tokens, d_vision) image
     embeddings for the vlm family's cross layers (projected through
     `img_proj`); without them a cross layer attends to its own input.
+
+    With a `mesh` (`launch/mesh.py`), tokens (and cache, img_emb) are
+    this rank's shard of the batch over `batch_axes`, and the moe
+    family's experts run expert-parallel over the mesh's `model` axis
+    (`params` holding this rank's experts, `moe.local_experts`); every
+    other layer runs whole on each rank.
     """
     _known(cfg)
     B, S = tokens.shape[:2]
@@ -417,6 +426,7 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
         img_emb = img_emb.to(cfg.cdtype) @ params["embed"]["img_proj"]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     ctx = {"mode": mode, "positions": positions, "t": t, "img_emb": img_emb,
+           "mesh": mesh, "batch_axes": batch_axes,
            "cache_len": cache_len or (cfg.decode_window or S)}
     keep = mode in ("prefill", "decode")
     new_cache = None

@@ -22,6 +22,13 @@ the reference stacks them (`layers.3.attn.wq` joins `layers.*.attn.wq`
 at index 3) and updates each stack as the reference updates the leaf,
 layer by layer (`_maybe_layerwise`) above `_LAYERWISE_BYTES`. Unnamed
 lists are updated tensor by tensor.
+
+Under a mesh a leaf may be split over a process group (the MoE's experts
+over `model`): `update(..., split={name: group})` names them. Adafactor's
+clip then takes the RMS of the whole leaf (or layer), its sum of squares
+and element count summed over the group, and its layer-by-layer choice
+counts the whole leaf's bytes; the elementwise optimizers ignore
+`split`.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import math
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +62,7 @@ def sgd() -> Optimizer:
         return {"step": 0}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, split=None):
         torch._foreach_add_(_tensors(params), _tensors(grads), alpha=-lr)
         state["step"] += 1
 
@@ -67,7 +75,7 @@ def momentum(beta: float = 0.9) -> Optimizer:
                       for p in _tensors(params)], "step": 0}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, split=None):
         m = state["m"]
         torch._foreach_mul_(m, beta)
         torch._foreach_add_(m, _tensors(grads))
@@ -90,7 +98,7 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         return {"m": z, "v": [torch.zeros_like(t) for t in z], "step": 0}
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, split=None):
         t = state["step"] + 1
         one = torch.tensor(1.0, dtype=torch.float32)
         c1 = float(one - torch.tensor(b1, dtype=torch.float32) ** t)
@@ -158,7 +166,19 @@ def adafactor(decay: float = 0.99, eps: float = 1e-30,
             f[key] = {k: t.to(p.device) for k, t in fac.items()}
         return {"f": f, "step": 0}
 
-    def upd(g, f):
+    def rms(step, group):
+        """The RMS of the whole leaf `step` is a shard of over `group`
+        (of `step` itself without one)."""
+        if group is None:
+            return torch.sqrt(torch.mean(torch.square(step)))
+        acc = torch.stack([torch.sum(torch.square(step)).double(),
+                           torch.tensor(float(step.numel()),
+                                        dtype=torch.float64,
+                                        device=step.device)])
+        dist.all_reduce(acc, group=group)
+        return torch.sqrt(acc[0] / acc[1]).to(step.dtype)
+
+    def upd(g, f, group=None):
         """One stack's gradient (or one leading index of it): returns the
         clipped step and writes the factors of `f` in place."""
         g2 = torch.square(g) + eps
@@ -172,21 +192,25 @@ def adafactor(decay: float = 0.99, eps: float = 1e-30,
             f["v"].mul_(decay).add_(g2, alpha=_f32(1 - decay))
             denom = torch.sqrt(f["v"])
         step = g / (denom + eps)
-        norm = torch.sqrt(torch.mean(torch.square(step)))
+        norm = rms(step, group)
         return step / torch.clamp(norm / clip, min=1.0)
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, split=None):
+        split = split or {}
         for key, (lead, members) in _groups(params).items():
             P = _stack(params, members, lead)
             G = _stack(grads, members, lead)
             f = state["f"][key]
-            if P.dim() >= 3 and P.numel() * 4 > _LAYERWISE_BYTES:
+            group = split.get(members[0][1])
+            whole = P.numel() * (1 if group is None
+                                 else dist.get_world_size(group))
+            if P.dim() >= 3 and whole * 4 > _LAYERWISE_BYTES:
                 step = torch.stack([
-                    upd(G[i], {k: t[i] for k, t in f.items()})
+                    upd(G[i], {k: t[i] for k, t in f.items()}, group)
                     for i in range(P.shape[0])])
             else:
-                step = upd(G, f)
+                step = upd(G, f, group)
             new = (P - lr * step).reshape((-1,) + P.shape[len(lead):])
             for j, (_, name) in enumerate(members):
                 params[name].copy_(new[j])

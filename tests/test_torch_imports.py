@@ -8,9 +8,11 @@ baseline (FML) with the clustered-gossip saving, a tiny ensemble
 `serve_batch` of the dense llama3-8b, ssm rwkv6-3b, hybrid zamba2-7b and
 moe qwen3-moe-235b-a22b families, one prefill and decode step of the
 vlm llama-3.2-vision-11b (with images) and the audio musicgen-medium
-(with codebooks) and two training steps of smoke qwen2.5-3b and rwkv6-3b
-with a checkpoint on the CPU loads neither JAX nor any module of the
-reference package `repro`."""
+(with codebooks), two training steps of smoke qwen2.5-3b and rwkv6-3b
+with a checkpoint, and, on a one-rank gloo world, a pod ring exchange
+and ensemble vote and an expert-parallel MoE train step with Adafactor
+(the mesh, sharding, pod and MoE mesh modules) on the CPU loads neither
+JAX nor any module of the reference package `repro`."""
 import os
 import subprocess
 import sys
@@ -122,6 +124,41 @@ for arch in ("qwen2.5-3b", "rwkv6-3b"):
         _, losses, _, _ = train(arch, "smoke", steps=2, batch=2, seq=16,
                                 device="cpu", ckpt_dir=ckpt)
     assert len(losses) == 2
+import os
+import torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.launch import fedpae_pods
+from repro_torch.launch import mesh as tmesh
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models import moe as tmoe
+from repro_torch.optim import constant, make_optimizer
+from repro_torch.sharding import param_shardings, placements
+with tempfile.TemporaryDirectory() as d:
+    tmesh.init_world("cpu", store=dist.FileStore(os.path.join(d, "s"), 1),
+                     timeout=60)
+    try:
+        pods = init_device_mesh("cpu", (1, 1, 1),
+                                mesh_dim_names=("pod", "data", "model"))
+        cfg = get_smoke("llama3-8b").replace(dtype="float32",
+                                             attn_impl="pallas")
+        m = fedpae_pods.pod_ring_exchange(
+            init_params(cfg, torch.Generator().manual_seed(0)), pods)
+        vote = fedpae_pods.make_ensemble_serve_step(cfg, pods)(
+            m, 1.0, torch.zeros((2, 8), dtype=torch.int32))
+        assert tuple(vote.shape) == (2, 1, cfg.vocab)
+        mesh = tmesh.make_host_mesh(1, 1, device="cpu")
+        cfg = get_smoke("qwen3-moe-235b-a22b").replace(dtype="float32")
+        m = tmoe.local_experts(init_params(
+            cfg, torch.Generator().manual_seed(0)), cfg, mesh)
+        placements(param_shardings(mesh, m, cfg)["layers.0.ffn.wg"], mesh)
+        opt = make_optimizer("adafactor")
+        toks = torch.zeros((2, 9), dtype=torch.int64)
+        loss = make_train_step(cfg, opt, constant(1e-3), mesh=mesh)(
+            m, opt.init(dict(m.named_parameters())),
+            {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        assert bool(torch.isfinite(loss))
+    finally:
+        dist.destroy_process_group()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
