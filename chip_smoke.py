@@ -329,6 +329,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import os
 import hashlib
 import json
 import math
@@ -377,6 +378,14 @@ ZOO_FLASH_SHAPES = [   # the zoo's prefill shapes at batch 4, new to the kernel
     (4, 56, 8, 2048, 2048, 128),    # arctic-480b, G = 7
     (4, 96, 8, 2048, 2048, 128),    # command-r-plus-104b, G = 12
     (4, 24, 24, 2048, 2048, 64)]    # musicgen-medium, MHA at head dim 64
+# the sharded step's new local shapes at batch 4 (model 4, then 16):
+# llama3-8b's 32 / 8 heads -> 8 / 2 and 2 / 1 (kv whole at 16, each rank
+# reads the one kv head of its q heads), command-r-plus-104b's 96 / 8 ->
+# 24 / 2 and 6 / 1
+SHARD_FLASH_SHAPES = [(4, 8, 2, 2048, 2048, 128), (4, 24, 2, 2048, 2048, 128),
+                      (4, 2, 1, 2048, 2048, 128), (4, 6, 1, 2048, 2048, 128)]
+SSD_SHARD_SHAPES = [(4, 2048, 28, 64, 64), (4, 2048, 7, 64, 64)]  # zamba2's
+                                                  # 112 heads at model 4, 16
 SCAN_Y_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}   # of max |y|
 SCAN_STATE_TOL = 1e-3
 SCAN_F64_TOL = 1e-6    # fp32 scans at the slice shapes, of max |y|
@@ -2105,7 +2114,8 @@ def flash_phase(torch):
                 (ZAMBA_ATTN_SHAPE, "bfloat16", 0, 0.0),
                 (ZAMBA_ATTN_SHAPE, "bfloat16", 512, 30.0),
                 (LONG_SHAPE, "bfloat16", 0, 0.0)]
-             + [(shape, "bfloat16", 0, 0.0) for shape in ZOO_FLASH_SHAPES])
+             + [(shape, "bfloat16", 0, 0.0) for shape in ZOO_FLASH_SHAPES]
+             + [(shape, "bfloat16", 0, 0.0) for shape in SHARD_FLASH_SHAPES])
     timings = {}
     for shape, dtype, window, cap in cases:
         B, H, KV, Sq, Sk, hd = shape
@@ -2134,7 +2144,8 @@ def flash_phase(torch):
               f"window {window} softcap {cap} disagrees with its plain "
               f"version: max abs err {err}")
         timed = window == 0 and shape in (SLICE_SHAPE, ZAMBA_ATTN_SHAPE,
-                                          LONG_SHAPE, *ZOO_FLASH_SHAPES)
+                                          LONG_SHAPE, *ZOO_FLASH_SHAPES,
+                                          *SHARD_FLASH_SHAPES)
         if shape == SLICE_SHAPE:   # the same data in the model layout
             qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             before = kernel.KERNEL.launches
@@ -2415,6 +2426,9 @@ def scan_phase(torch):
             cases.append(("ssd_scan", shape, dtype, ssd_case(
                 torch, gen, *shape[:5], dtype,
                 split=shape[:5] == SSD_SLICE)))
+    for shape in SSD_SHARD_SHAPES:   # a rank's heads under the sharded step
+        cases.append(("ssd_scan", shape + (128,), "bfloat16", ssd_case(
+            torch, gen, *shape, "bfloat16", split=True)))
     for shape, s0, lw in [((2, 128, 4, 64, 64), False, None),
                           ((1, 256, 2, 32, 64), False, None),
                           ((2, 192, 3, 64, 32), False, None),
@@ -2484,7 +2498,8 @@ def scan_phase(torch):
                       f"{SCAN_F64_TOL}")
             del y64
         del y, st, y0, st0
-        if dtype == "bfloat16" and shape[:-1] in (SSD_SLICE, WKV_SLICE):
+        if dtype == "bfloat16" and shape[:-1] in (SSD_SLICE, WKV_SLICE,
+                                                  *SSD_SHARD_SHAPES):
             # in turns: plain, kernel, kernel, plain
             p1, k1, k2, p2 = (time_ms(torch, fn, iters=it, warmup=1)
                               for fn, it in ((run_plain, 3),
@@ -2504,9 +2519,11 @@ def scan_phase(torch):
             o_ms, o_by = roofline(*counts[True], True, 2)
             k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
             share(f"{name} {shape[:-1]}", b_ms, k_ms)
-            out[name] = dict(err=y_err, ms=k_ms, plain_ms=p_ms,
-                             chunked_ms=c_ms, bound_ms=b_ms, bound_by=b_by,
-                             device_ms=own_ms)
+            key = name if shape[:-1] in (SSD_SLICE, WKV_SLICE) \
+                else (name, shape[:-1])
+            out[key] = dict(err=y_err, ms=k_ms, plain_ms=p_ms,
+                            chunked_ms=c_ms, bound_ms=b_ms, bound_by=b_by,
+                            device_ms=own_ms)
             print(f"  time {name} {shape[:-1]} bf16: kernel {k_ms:.6f} ms "
                   f"({k1:.6f}, {k2:.6f}), plain {p_ms:.6f} ms ({p1:.6f}, "
                   f"{p2:.6f}), chunked PyTorch copy {c_ms:.6f} ms per call;"
@@ -2955,21 +2972,18 @@ TRAIN_GRAD_TOL = 1e-4      # card against CPU, each parameter's first-step
 TRAIN_FULL = {"steps": 6, "batch": 4, "seq": 2048, "microbatches": 2,
               "seed": 0}
 TRAINS = {  # arch -> n_layers: the depth cut (REDUCED_TRAIN says why)
-    "qwen2.5-3b": 18, "rwkv6-3b": 16, "zamba2-7b": 21,
+    "qwen2.5-3b": 36, "rwkv6-3b": 32, "zamba2-7b": 45,
     "qwen3-moe-235b-a22b": 1}
+TRAIN_BWD_LAUNCHES = {"rwkv6-3b": 384, "zamba2-7b": 540}   # in 6 steps
 TRAIN_CHECKS = ["qwen2.5-3b", "rwkv6-3b", "zamba2-7b", "qwen3-moe-235b-a22b",
                 "llama-3.2-vision-11b", "musicgen-medium"]
-# train() draws its weights on the host, some 15-20 s a billion parameters
-# there: at full depth the first three took 205 s of the script's limit
-REDUCED_TRAIN = {"qwen2.5-3b": "n_layers 36 -> 18: the script's time "
-                               "limit (the host's weight draw)",
-                 "rwkv6-3b": "n_layers 32 -> 16: the script's time limit "
-                             "(the host's weight draw)",
-                 "zamba2-7b": "n_layers 81 -> 21 (3 super-blocks of 6 "
+# the weights are drawn on the card from a seeded CUDA generator
+# (`_draw`), as the pods' are, and handed to train(params=)
+REDUCED_TRAIN = {"zamba2-7b": "n_layers 81 -> 45 (7 super-blocks of 6 "
                  "Mamba2 blocks and a tail of 3, both shared attention "
                  "blocks in use): 6956658896 parameters with adamw's fp32 "
                  "moments and gradients do not fit one 80 GB card (45 "
-                 "layers do), and the script's time limit",
+                 "layers do)",
                  "qwen3-moe-235b-a22b": "n_layers 94 -> 1: 3.73e9 "
                  "parameters x 16 bytes (bf16 weights, fp32 moments and "
                  "accumulator, bf16 gradients) = 59.7 GB beside the "
@@ -3146,12 +3160,14 @@ def full_train_phase(torch, arch, n_layers):
     libs = (kern.KERNEL, kern.KERNEL_BWD) if kern else ()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    drawn = _draw(torch, cfg, c["seed"])
     for lib in libs:
         lib.launches = 0
     params, losses, cfg, secs = train(
         arch, "full", steps=c["steps"], batch=c["batch"], seq=c["seq"],
         seed=c["seed"], microbatches=c["microbatches"], log_every=1,
-        device="cuda", n_layers=n_layers)
+        device="cuda", n_layers=n_layers, params=drawn)
+    del drawn
     fwd, bwd = [lib.launches for lib in libs] or (0, 0)
     peak = torch.cuda.max_memory_allocated()
     n_par = sum(p.numel() for p in params.parameters())
@@ -3711,10 +3727,20 @@ def pod_path(torch, rank, world, say):
     torch.cuda.empty_cache()
     got, ms = _ms(torch, lambda: fedpae_pods.pod_ring_exchange(member,
                                                                mesh))
+    parts = {}
+    split = fedpae_pods.pod_ring_exchange(member, mesh, times=parts)
     sender = member if world == 1 else _draw(torch, cfg, (rank - 1) % world)
     want = dict(sender.named_parameters())
     same = all(torch.equal(t, want[n]) and t.dtype == want[n].dtype
                for n, t in got.named_parameters())
+    same_split = all(torch.equal(t, want[n]) for n, t in
+                     split.named_parameters())
+    say(f"multi-device pods [{CARD}]: the exchange timed by part: pack "
+        f"{parts['pack']:.6f} ms, collective {parts['collective']:.6f} ms, "
+        f"unpack {parts['unpack']:.6f} ms (each ended by a device sync); "
+        f"received == the sender's bitwise: {same_split}")
+    check(same_split, "the part-timed exchange differs from the sender's")
+    del split
     what = ("a device copy through the one-rank pod group, not a link "
             "rate" if world == 1 else f"over {world} ranks")
     say(f"multi-device pods [{CARD}]: {arch} member ({n_bytes} bytes) "
@@ -3754,7 +3780,8 @@ def pod_path(torch, rank, world, say):
     dist.barrier()
     del member, vote, own
     torch.cuda.empty_cache()
-    return {"launches": launches, "exchange_ms": ms, "vote_ms": vote_ms}
+    return {"launches": launches, "exchange_ms": ms, "vote_ms": vote_ms,
+            "exchange_parts_ms": parts}
 
 
 def moe_mesh_path(torch, rank, world, say):
@@ -3858,6 +3885,159 @@ def moe_mesh_path(torch, rank, world, say):
     return {"prefill_ms": prefill_ms, "train_ms": q["ms"]}
 
 
+SHARD_TRAIN = ("qwen2.5-3b", 4, 2)   # arch, layers, batch of 2048 tokens
+PEAK_FLOPS = 989e12   # H100 SXM bf16 dense (roofline/analysis.py)
+DRYRUN_CELLS = [("llama3-8b", "prefill_32k"), ("llama3-8b", "train_4k")]
+DRYRUN_TIMEOUT = 300   # seconds, each dry-run subprocess
+
+
+def sharded_path(torch, rank, world, say):
+    """The sharded step at world 1 (a 1 x 1 (data, model) mesh over NCCL):
+    llama3-8b's prefill and a decode step, and one qwen2.5-3b SGD train
+    step, through `rules.shard_params` and the sharded steps, each
+    bitwise equal to mesh=None, flash's launches unchanged; the prefill's
+    model-FLOP share of the card (prefill_mfu)."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.shapes import InputShape
+    from repro_torch.optim import constant, make_optimizer
+    from repro_torch.roofline.analysis import model_flops
+    from repro_torch.sharding.rules import shard_params
+
+    if world != 1:
+        say(f"sharded step: world {world}; the bitwise checks need world 1")
+        return {}
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data",
+                                                            "model"))
+    arch, overrides = MULTI_POD
+    cfg = get_config(arch).replace(**overrides)
+    B, S = SERVE["batch"], SERVE["prompt_len"]
+    hb = next(iter(TokenPipeline(cfg.vocab, B, S + 1, seed=0)))["tokens"]
+    toks = torch.as_tensor(hb, device="cuda")
+    member = _draw(torch, cfg, 0)
+    local = shard_params(member, mesh, cfg)
+    plain = (steps_mod.make_prefill_step(cfg, cache_len=S + 8),
+             steps_mod.make_serve_step(cfg))
+    meshed = (steps_mod.make_prefill_step(cfg, mesh=mesh,
+                                          batch_axes=("data",),
+                                          cache_len=S + 8),
+              steps_mod.make_serve_step(cfg, mesh=mesh,
+                                        batch_axes=("data",)))
+    out, launches = {}, {}
+    with torch.inference_mode():
+        plain[0](member, {"tokens": toks[:, :S]})           # warm-up
+        for what, params, (pre, serve) in (("plain", member, plain),
+                                           ("sharded", local, meshed)):
+            kernel.KERNEL.launches = 0
+            (logits, cache), ms = _ms(torch, lambda: pre(
+                params, {"tokens": toks[:, :S]}))
+            launches[what] = kernel.KERNEL.launches
+            d_logits, cache = serve(params, {"tokens": toks[:, S:],
+                                             "cache": cache, "t": S})
+            out[what] = (logits, d_logits, cache, ms)
+    same_pre = torch.equal(out["plain"][0], out["sharded"][0])
+    same_dec = torch.equal(out["plain"][1], out["sharded"][1])
+    same_cache = _tree_equal(torch, out["plain"][2], out["sharded"][2])
+    n_params = sum(t.numel() for t in member.parameters())
+    secs = out["plain"][3] / 1e3
+    mf = model_flops(cfg, InputShape("serve_prefill", S, B, "prefill"),
+                     n_params)
+    mfu = mf / (secs * PEAK_FLOPS)
+    say(f"sharded step [{CARD}]: {arch} on a 1 x 1 mesh: prefill of {B} x "
+        f"{S} logits bitwise {same_pre}, decode logits bitwise {same_dec}, "
+        f"caches bitwise {same_cache}; flash launches {launches['plain']} "
+        f"unmeshed, {launches['sharded']} sharded; prefill "
+        f"{out['plain'][3]:.6f} ms unmeshed, {out['sharded'][3]:.6f} ms "
+        f"sharded")
+    print(f"prefill_mfu [{CARD}]: {mfu:.6f} ({arch} prefill of {B} x {S} "
+          f"tokens: model_flops 2 N D = {mf:.6e} FLOP, N = {n_params}, in "
+          f"{secs:.6f} s, against {PEAK_FLOPS:.3e} FLOP/s)")
+    check(same_pre and same_dec and same_cache,
+          "the sharded llama3-8b steps at world 1 differ from mesh=None")
+    check(launches["plain"] == launches["sharded"] == cfg.n_layers,
+          f"flash launches {launches} (expected {cfg.n_layers} each)")
+    del member, local, out
+    torch.cuda.empty_cache()
+
+    arch, n_layers, b = SHARD_TRAIN
+    cfg = get_config(arch).replace(n_layers=n_layers)
+    hb = next(iter(TokenPipeline(cfg.vocab, b, S, seed=1)))
+    batch = {k: torch.as_tensor(hb[k], device="cuda")
+             for k in ("tokens", "labels")}
+    res = {}
+    for what, mesh_ in (("plain", None), ("sharded", mesh)):
+        params = _draw(torch, cfg, 0)
+        if mesh_ is not None:
+            params = shard_params(params, mesh_, cfg)
+        opt = make_optimizer("sgd")
+        step = steps_mod.make_train_step(cfg, opt, constant(MULTI_LR),
+                                          mesh=mesh_, batch_axes=("data",))
+        loss, ms = _ms(torch, lambda: step(params, opt.init(None), batch))
+        res[what] = (float(loss), params, ms)
+    same_loss = res["plain"][0] == res["sharded"][0]
+    same_params = _tree_equal(torch, list(res["plain"][1].parameters()),
+                              list(res["sharded"][1].parameters()))
+    say(f"sharded step [{CARD}]: {arch} at {n_layers} layers, one SGD step "
+        f"of {b} x {S}: loss {res['sharded'][0]!r} (unmeshed "
+        f"{res['plain'][0]!r}), bitwise {same_loss}; parameters bitwise "
+        f"{same_params}; {res['sharded'][2]:.6f} ms sharded, "
+        f"{res['plain'][2]:.6f} ms unmeshed")
+    check(same_loss and same_params, "the sharded qwen2.5-3b train step at "
+          "world 1 differs from mesh=None")
+    del res
+    torch.cuda.empty_cache()
+    return {"prefill_mfu": mfu, "launches": launches}
+
+
+def dryrun_phase(torch):
+    """`launch/dryrun.py` in two subprocesses side by side (no card:
+    torch's fake process group of 256 ranks, meta tensors) for llama3-8b at prefill_32k and
+    train_4k on 16 x 16: strict JSON records whose n_params is the full
+    config's, and their roofline terms."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import MetaGen
+    from repro_torch.models import transformer as tf
+    from repro_torch.roofline.analysis import roofline_terms
+    out_dir = ROOT / "build" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {cell: subprocess.Popen(    # the cells side by side
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1], "--out", str(out_dir)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cell in DRYRUN_CELLS}
+    records = {}
+    for (arch, shape), proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        print(stdout.strip())
+        check(proc.returncode == 0, f"dry run of {arch} {shape} exited "
+              f"{proc.returncode}: {stderr[-2000:]}")
+        rec = _strict_json(out_dir / f"{arch}__{shape}__sp.json")
+        n = sum(t.numel() for t in tf.init_params(
+            get_config(arch), MetaGen()).parameters())
+        check(rec["n_params"] == n, f"dry run n_params {rec['n_params']} "
+              f"!= the full config's {n}")
+        terms = roofline_terms(rec)
+        print(f"dry run {arch} {shape} (16 x 16, rank 0): flops/dev "
+              f"{rec['flops_per_device']:.6e}, bytes/dev "
+              f"{rec['bytes_per_device']:.6e}, collective bytes/dev "
+              + json.dumps(rec["collective_bytes_per_device"])
+              + f", argument bytes {rec['memory']['argument_bytes']}, traced "
+              f"in {rec['compile_seconds']} s; roofline (H100 SXM data "
+              f"sheet at 700 W) compute {terms['compute_s']:.6f} s, memory "
+              f"{terms['memory_s']:.6f} s, collective "
+              f"{terms['collective_s']:.6f} s: {terms['dominant']}")
+        records[(arch, shape)] = rec
+    return records
+
+
 def multidevice_rank(rank, world, init_method, card):
     """One rank of the multi-device phase on card `rank`: the pod path,
     then the MoE path, over NCCL; returns rank 0's counts."""
@@ -3878,19 +4058,21 @@ def multidevice_rank(rank, world, init_method, card):
             f"{torch.cuda.get_device_name(torch.cuda.current_device())}")
         out = {"pods": pod_path(torch, rank, world, say)}
         out["moe"] = moe_mesh_path(torch, rank, world, say)
+        out["sharded"] = sharded_path(torch, rank, world, say)
     finally:
         dist.destroy_process_group()
     return out
 
 
-def _multidevice_child(rank, world, init_method, card, queue):
-    out = multidevice_rank(rank, world, init_method, card)
+def _multidevice_child(rank, world, init_method, card, queue, fn=None):
+    out = (fn or multidevice_rank)(rank, world, init_method, card)
     queue.put((rank, out))
 
 
-def multidevice_phase(torch):
-    """The multi-device phase over a world of one rank a card: in this
-    process at one card, else one spawned process a card."""
+def multidevice_phase(torch, rank_fn=None):
+    """The multi-device phase (or `rank_fn`) over a world of one rank a
+    card: in this process at one card, else one spawned process a
+    card."""
     import multiprocessing
     import queue as queue_mod
     import socket
@@ -3899,11 +4081,11 @@ def multidevice_phase(torch):
         s.bind(("127.0.0.1", 0))
         init_method = f"tcp://127.0.0.1:{s.getsockname()[1]}"
     if world == 1:
-        return multidevice_rank(0, 1, init_method, CARD)
+        return (rank_fn or multidevice_rank)(0, 1, init_method, CARD)
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
     procs = [ctx.Process(target=_multidevice_child, args=(
-        r, world, init_method, CARD, queue)) for r in range(world)]
+        r, world, init_method, CARD, queue, rank_fn)) for r in range(world)]
     for p in procs:
         p.start()
     outs = {}
@@ -3927,6 +4109,147 @@ def multidevice_phase(torch):
     return outs[0]
 
 
+ZOO4 = {"arch": "command-r-plus-104b", "model": 4, "gen": 16}
+
+
+def _draw_pieces(torch, cfg, mesh, seed):
+    """This rank's pieces of a model too large for one card, drawn on
+    it: `rules.shard_params` of the meta model gives each piece's shape,
+    then each piece is drawn as `dense_init` draws a whole leaf (a
+    truncated normal at the whole leaf's fan-in) from a CUDA generator
+    seeded by (seed, model rank); norms are zeros, as `init_rms`'s."""
+    from repro_torch.launch.dryrun import MetaGen
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import with_leaves
+    from repro_torch.sharding.rules import leaf_split, shard_params
+    full = tf.init_params(cfg, MetaGen())
+    whole = {n: tuple(t.shape) for n, t in full.named_parameters()}
+    local = shard_params(full, mesh, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(
+        1000 * seed + mesh.get_local_rank("model"))
+    leaves, splits = {}, {}
+    for name, t in local.named_parameters():
+        splits[name] = leaf_split(t)
+        if t.dim() == 1:
+            leaves[name] = torch.zeros(t.shape, dtype=t.dtype, device="cuda")
+            continue
+        fan_in = whole[name][-1 if name == "embed.embed" else -2]
+        w = torch.empty(t.shape, dtype=torch.float32, device="cuda")
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        leaves[name] = (w * fan_in ** -0.5).to(t.dtype)
+        del w
+    out = with_leaves(local, leaves)
+    for name, p in out.named_parameters():
+        if splits[name]:
+            p.mesh_split = splits[name]
+    torch.cuda.empty_cache()
+    return out
+
+
+def zoo4_rank(rank, world, init_method, card):
+    """command-r-plus-104b at all 64 layers, split over a (data 1, model
+    world) mesh: a prefill of 4 x 2048 prompts and greedy decode, the
+    vocab-parallel logits gathered for the argmax."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch.dryrun import collective_bytes
+    from repro_torch.obs.metrics import Stopwatch
+    global CARD
+    CARD = card
+    mesh_mod.init_world("cuda", rank=rank, world_size=world,
+                        init_method=init_method, timeout=600)
+    say = print if rank == 0 else (lambda *a, **kw: None)
+    try:
+        cfg = get_config(ZOO4["arch"]).replace(**PALLAS)
+        mesh = mesh_mod.make_host_mesh(1, world)
+        B, S, G = SERVE["batch"], SERVE["prompt_len"], ZOO4["gen"]
+        torch.cuda.reset_peak_memory_stats()
+        sw = Stopwatch().start()
+        params = _draw_pieces(torch, cfg, mesh, 0)
+        torch.cuda.synchronize()
+        draw_s = sw.stop()
+        n_bytes = sum(t.numel() * t.element_size()
+                      for t in params.parameters())
+        toks = torch.as_tensor(next(iter(TokenPipeline(
+            cfg.vocab, B, S, seed=0)))["tokens"], device="cuda")
+        pre = steps_mod.make_prefill_step(cfg, mesh=mesh,
+                                          batch_axes=("data",),
+                                          cache_len=S + G)
+        serve = steps_mod.make_serve_step(cfg, mesh=mesh,
+                                          batch_axes=("data",))
+
+        def whole(logits):
+            return mesh_mod.all_gather_over(logits.float().contiguous(),
+                                            mesh, "model", 1)
+        with torch.inference_mode():
+            _, first_ms = _ms(torch, lambda: pre(params, {"tokens": toks}))
+            torch.cuda.empty_cache()
+            kernel.KERNEL.launches = 0
+            with mesh_mod.record_collectives() as events:
+                (logits, cache), pre_ms = _ms(torch, lambda: pre(
+                    params, {"tokens": toks}))
+            launches = kernel.KERNEL.launches
+            coll, counts = collective_bytes(events, world)
+            nxt = whole(logits).argmax(-1)
+            out, finite = [nxt], bool(torch.isfinite(logits).all())
+            dist.barrier()
+            steps = []
+            for i in range(G - 1):
+                torch.cuda.synchronize()
+                sw = Stopwatch().start()
+                logits, cache = serve(params, {"tokens": nxt[:, None],
+                                               "cache": cache, "t": S + i})
+                finite &= bool(torch.isfinite(logits).all())
+                nxt = whole(logits).argmax(-1)
+                out.append(nxt)
+                torch.cuda.synchronize()
+                steps.append(sw.stop())
+            dec_s = sum(steps[1:]) / len(steps[1:])
+        gen = torch.stack(out, 1)
+        same = [torch.empty_like(gen) for _ in range(world)]
+        dist.all_gather(same, gen)
+        agree = all(torch.equal(g, gen) for g in same)
+        peak = torch.cuda.max_memory_allocated()
+        say(f"zoo4 [{CARD}]: {ZOO4['arch']} at all {cfg.n_layers} layers "
+            f"over a (data 1, model {world}) mesh, NCCL: {n_bytes} bytes "
+            f"of weights a card, drawn in {draw_s:.3f} s; prefill of {B} x "
+            f"{S} in {pre_ms:.6f} ms (the first, warm-up included, "
+            f"{first_ms:.6f} ms; {launches} flash launches, "
+            f"{dict(counts)} collectives, ring bytes a card "
+            f"{json.dumps(coll)}); decode steps 2-{G - 1} {dec_s:.6f} s a "
+            f"step ({B / dec_s:.3f} tokens/s; the first {steps[0]:.6f} "
+            f"s); logits finite "
+            f"{finite}; every rank's tokens equal {agree}; peak device "
+            f"memory {peak} bytes ({peak / 2**30:.2f} GiB) on rank 0")
+        check(finite and agree and launches == cfg.n_layers,
+              f"zoo4: finite {finite}, ranks agree {agree}, flash "
+              f"launches {launches}")
+        return {"prefill_ms": pre_ms, "decode_s": dec_s, "peak": peak}
+    finally:
+        dist.destroy_process_group()
+
+
+def zoo4_main(torch) -> int:
+    """`python3 chip_smoke.py --zoo-4` (four cards; the run with no
+    arguments, on one card, never takes it): command-r-plus-104b at all
+    64 layers served over a 4-way model axis."""
+    from repro_torch.kernels._build import build_all
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    world = torch.cuda.device_count()
+    check(world >= ZOO4["model"], f"--zoo-4 needs {ZOO4['model']} cards, "
+          f"the machine has {world}")
+    build_all([fa_kernel.KERNEL])
+    timed("zoo4", multidevice_phase, torch, zoo4_rank)
+    print("phase seconds:", json.dumps(PHASE_SECONDS))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3935,14 +4258,17 @@ def main() -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    global CARD
+    CARD = nvidia_smi("name,power.limit")
+    if "--zoo-4" in sys.argv[1:]:
+        print(CARD)
+        return zoo4_main(torch)
     from repro_torch.kernels._build import build_all
     from repro_torch.kernels.ensemble_fitness import kernel
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
     from repro_torch.kernels.wkv_scan import kernel as wkv_kernel
 
-    global CARD
-    CARD = nvidia_smi("name,power.limit")
     print(CARD)
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; device "
@@ -4006,14 +4332,14 @@ def main() -> int:
                              arch).items():
             flash_paths[f"{arch} {path}"] = n
     multi = timed("multi-device", multidevice_phase, torch)
+    timed("dry run", dryrun_phase, torch)
     flash_paths[f"{MULTI_POD[0]} pod vote"] = multi["pods"]["launches"]
     trained = {arch: timed(f"train {arch}", full_train_phase, torch, arch,
                            n_layers)
                for arch, n_layers in TRAINS.items()}
-    check(trained["rwkv6-3b"]["bwd"] > 0, "wkv_scan_bwd did not launch in "
-          "rwkv6-3b training")
-    check(trained["zamba2-7b"]["bwd"] > 0, "ssd_scan_bwd did not launch in "
-          "zamba2-7b training")
+    for arch, n in TRAIN_BWD_LAUNCHES.items():
+        check(trained[arch]["bwd"] == n, f"{arch} training: "
+              f"{trained[arch]['bwd']} backward scan launches, expected {n}")
 
     print("phase seconds:", json.dumps(PHASE_SECONDS))
     k_ms, p_ms, b_ms, b_by = timings[("batched", 32, 200, 100)]
@@ -4061,7 +4387,10 @@ def main() -> int:
         "max_abs_err": scans[kname]["err"], "ms": scans[kname]["ms"],
         "plain_ms": scans[kname]["plain_ms"],
         "bound_ms": scans[kname]["bound_ms"],
-        "bound_by": scans[kname]["bound_by"], "library_ms": None}
+        "bound_by": scans[kname]["bound_by"], "library_ms": None,
+        "by_shape": {str(key[1]): {k: t[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by")}
+            for key, t in scans.items() if key[0] == kname}}
         for kname, line in (("ssd_scan", 88), ("wkv_scan", 76))] + [{
         "name": "wkv_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/csrc/wkv_scan_bwd.cu",

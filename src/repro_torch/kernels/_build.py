@@ -64,6 +64,13 @@ def check_cuda(kernel: str, strided: Sequence[str] = (), **tensors) -> None:
             raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
+# devices whose tensors take a kernel's plain version: the CPU, and
+# `meta` (shapes only), which the dry run (`launch/dryrun.py`) traces
+# as the reference's dry run counts its own jnp paths; a CUDA tensor
+# always launches the kernel or raises
+PLAIN_DEVICES = ("cpu", "meta")
+
+
 def refuse_grad(kernel: str, **tensors) -> None:
     """A kernel without a backward raises where autograd would need one:
     grad mode on and an input that requires grad. It never detaches the

@@ -9,19 +9,21 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._build import PLAIN_DEVICES
+
 from . import kernel, ref
 
 
 def ensemble_fitness(pop, acc, S):
     if pop.dim() == 3:
         return ensemble_fitness_batched(pop, acc, S)
-    if pop.device.type == "cpu":
+    if pop.device.type in PLAIN_DEVICES:
         return ref.ensemble_fitness_ref(pop, acc, S)
     return kernel.ensemble_fitness(pop, acc, S)
 
 
 def ensemble_fitness_batched(pop, acc, S):
-    if pop.device.type == "cpu":
+    if pop.device.type in PLAIN_DEVICES:
         return ref.ensemble_fitness_batched_ref(pop, acc, S)
     return kernel.ensemble_fitness_batched(pop, acc, S)
 
@@ -32,7 +34,7 @@ def objectives_fn(acc, S):
     one leading client axis. CUDA statistics are checked here once and
     every call is one kernel launch into one buffer; CPU statistics take
     the plain version."""
-    if acc.device.type == "cpu":
+    if acc.device.type in PLAIN_DEVICES:
         def plain(pop):
             return torch.stack(ref.ensemble_fitness_batched_ref(pop, acc, S),
                                dim=-1)

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._build import refuse_grad
+from repro_torch.kernels._build import PLAIN_DEVICES, refuse_grad
 
 from . import kernel, ref
 
@@ -18,7 +18,7 @@ from . import kernel, ref
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0):
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd)."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return ref.flash_attention_ref(qt, kt, vt, causal=causal,
                                        window=window,
                                        softcap=softcap).transpose(1, 2)

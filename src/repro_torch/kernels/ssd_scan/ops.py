@@ -11,6 +11,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._build import PLAIN_DEVICES
+
 from . import kernel, ref
 from .kernel import CHUNK
 
@@ -48,7 +50,7 @@ def ssd_scan(x, dt, A_log, B, C, D, chunk: int = CHUNK):
     if pad:
         x = F.pad(x, (0, 0, 0, 0, 0, pad))
         dt, B, C = (F.pad(a, (0, 0, 0, pad)) for a in (dt, B, C))
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         y, hT = ref.ssd_scan_ref(x, dt, A_log, B, C, D)
     else:
         y, hT = _SsdScan.apply(x.contiguous(), dt.float().contiguous(),

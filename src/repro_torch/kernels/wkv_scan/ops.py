@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels._build import PLAIN_DEVICES
+
 from . import kernel, ref
 from .kernel import CHUNK
 
@@ -48,7 +50,7 @@ def wkv_scan(r, k, v, logw, u, s0=None, chunk: int = CHUNK):
     if pad:
         r, k, v, logw = (F.pad(a, (0, 0, 0, 0, 0, pad))
                          for a in (r, k, v, logw))
-    if r.device.type == "cpu":
+    if r.device.type in PLAIN_DEVICES:
         y, sT = ref.wkv_scan_ref(r, k, v, logw, u, s0)
     else:
         y, sT = _WkvScan.apply(

@@ -13,24 +13,32 @@ family with the batch's `img_emb`.
 
 With a `mesh` (`launch/mesh.py`) every rank is given the whole batch
 and takes its contiguous shard over `batch_axes` (the first axis major,
-as a JAX sharding of dim 0); the moe family's experts run expert-
-parallel over `model`, the parameters holding this rank's experts
-(`models.moe.local_experts`). A train step returns the global loss (the
-mean over the `batch_axes` ranks) and averages every gradient over those
-ranks before the update (each leaf is replicated over them; an expert
-leaf keeps its shard over `model`, whose Adafactor clip sums over
-`model`). Prefill and serve steps return this rank's shard of the
-logits and cache.
+as a JAX sharding of dim 0); the parameters are this rank's pieces
+(`sharding.rules.shard_params`: FSDP over `data`, tensor parallelism
+over `model`; `models.moe.local_experts` cuts only the experts) and the
+forward runs sharded where they are split (`sharding/layout.py`). A
+train step returns the global loss (the mean over the `batch_axes`
+ranks). Each gradient is averaged over those ranks before the update: a
+leaf split over `data` gets its sum over `data` from the backward's
+reduce-scatter onto its piece, the rest one all-reduce an axis. The
+optimizer runs on the pieces (its moments are pieces alike, as
+`rules.state_shardings` lays them out; Adafactor sums its factors and
+clip over the split dims' groups). Cross-entropy is vocab-parallel where
+the logits are split over `model` (max and sum over `model`). Prefill
+and serve steps return this rank's shard of the logits (split over
+`model` where the head is) and cache (as `rules.cache_shardings` lays
+it out).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.launch.mesh import all_reduce_over, batch_shard, mesh_shape
-from repro_torch.models import moe as moe_mod
+from repro_torch.launch.mesh import (all_reduce_over, batch_shard,
+                                     mesh_shape, reduce)
 from repro_torch.models import transformer as tf
-from repro_torch.models.common import ModelConfig, cross_entropy
+from repro_torch.models.common import ModelConfig, cross_entropy, softcap
 from repro_torch.optim import make_optimizer
+from repro_torch.sharding.rules import leaf_split, split_factor
 
 
 def _local(x, mesh, batch_axes_):
@@ -47,14 +55,30 @@ def _local(x, mesh, batch_axes_):
 
 
 def count_params(params, mesh=None) -> int:
-    """The model's parameters; under a mesh the expert leaves hold
-    1/n_model of theirs, so they count n_model times."""
-    n = sum(p.numel() for p in params.parameters())
-    if mesh is not None:
-        named = dict(params.named_parameters())
-        n += (mesh_shape(mesh).get("model", 1) - 1) * sum(
-            named[k].numel() for k in moe_mod.expert_names(params))
-    return n
+    """The model's parameters; under a mesh a leaf cut by
+    `rules.shard_params` counts as many times as it has pieces."""
+    if mesh is None:
+        return sum(p.numel() for p in params.parameters())
+    return sum(p.numel() * split_factor(p, mesh)
+               for p in params.parameters())
+
+
+def vocab_parallel_cross_entropy(logits, labels, mesh, softcap_val=0.0):
+    """`cross_entropy` of logits split over `model` by vocabulary (this
+    rank's (..., V / n) columns, in rank order): the row max and the sum
+    of exponentials are taken over `model`, and the gold logit is summed
+    from the rank that holds it."""
+    V = logits.shape[-1]
+    lo = mesh.get_local_rank("model") * V
+    z = softcap(logits.float(), softcap_val)
+    m = all_reduce_over(z.detach().amax(-1).contiguous(), mesh, ("model",),
+                        op="max")
+    se = reduce(torch.exp(z - m[..., None]).sum(-1), mesh, "model")
+    t = labels.long() - lo
+    ok = (t >= 0) & (t < V)
+    gold = torch.gather(z, -1, t.clamp(0, V - 1)[..., None])[..., 0]
+    gold = reduce(torch.where(ok, gold, 0.0), mesh, "model")
+    return torch.mean(m + torch.log(se) - gold)
 
 
 def choose_optimizer(cfg: ModelConfig, n_params: int):
@@ -78,7 +102,12 @@ def make_train_step(cfg: ModelConfig, opt, lr_fn, mesh=None,
         logits, extra = tf.forward(params, cfg, b["tokens"], mode="train",
                                    img_emb=b.get("img_emb"), mesh=mesh,
                                    batch_axes=batch_axes)
-        loss = cross_entropy(logits, b["labels"], cfg.final_logit_softcap)
+        if mesh is not None and logits.shape[-1] < cfg.vocab:
+            loss = vocab_parallel_cross_entropy(
+                logits, b["labels"], mesh, cfg.final_logit_softcap)
+        else:
+            loss = cross_entropy(logits, b["labels"],
+                                 cfg.final_logit_softcap)
         if cfg.n_experts and extra is not None:
             loss = loss + 0.01 * extra  # router load-balance aux
         return loss
@@ -112,12 +141,20 @@ def make_train_step(cfg: ModelConfig, opt, lr_fn, mesh=None,
         split = None
         if mesh is not None:
             n = batch_shard(mesh, batch_axes)[1]
+            n_data = mesh_shape(mesh).get("data", 1)
             loss = all_reduce_over(loss.clone(), mesh, batch_axes) / n
             # in place, a leaf at a time: no second copy of the gradients
-            grads = [all_reduce_over(g.contiguous(), mesh, batch_axes).div_(n)
-                     for g in grads]
-            group = mesh.get_group("model")
-            split = {k: group for k in moe_mod.expert_names(params)}
+            for i, p in enumerate(leaves):
+                fsdp = "data" in leaf_split(p).values()
+                axes = [a for a in batch_axes if not (fsdp and a == "data")]
+                g = all_reduce_over(grads[i].contiguous(), mesh, axes)
+                # the reduce-scatter summed n_data copies of a step whose
+                # batch is not split over data
+                grads[i] = g.div_(n * (n_data if fsdp and "data" not in
+                                       batch_axes else 1))
+            split = {k: {d - p.dim(): mesh.get_group(a)
+                         for d, a in leaf_split(p).items()}
+                     for k, p in named.items() if leaf_split(p)}
         lr = lr_fn(opt_state["step"])
         opt.update(dict(zip(named, grads)), opt_state, named, lr,
                    split=split)

@@ -61,20 +61,22 @@ def scaled_config(arch: str, preset: str):
 def train(arch: str, preset: str, steps: int, batch: int, seq: int,
           lr: float = 3e-4, log_every: int = 10, ckpt_dir: str | None = None,
           seed: int = 0, *, device=None, microbatches: int = 1,
-          n_layers: int | None = None):
+          n_layers: int | None = None, params=None):
     """Train `arch` at `preset` for `steps` adamw steps (weight decay
     0.01, warmup_cosine) on `TokenPipeline(seed=seed)` batches, from
     parameters drawn on the CPU from `seed` and moved to the device (so
-    every device starts from the same weights). `n_layers` cuts the
-    preset's depth (its width stays).
+    every device starts from the same weights), or from `params` (a
+    model of this config drawn by the caller, on the device, trained in
+    place). `n_layers` cuts the preset's depth (its width stays).
     Returns (params, losses, cfg, seconds): each step's seconds end after
     its loss is read back."""
     device = resolve_device(device)
     cfg = scaled_config(arch, preset)
     if n_layers is not None:
         cfg = cfg.replace(n_layers=n_layers)
-    params = tf.init_params(cfg, torch.Generator().manual_seed(seed))
-    params = params.to(device)
+    if params is None:
+        params = tf.init_params(cfg, torch.Generator().manual_seed(seed))
+        params = params.to(device)
     n_params = steps_mod.count_params(params)
     print(f"[train] arch={arch} preset={preset} params={n_params/1e6:.1f}M "
           f"family={cfg.family} device={device}", flush=True)

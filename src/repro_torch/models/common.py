@@ -119,6 +119,32 @@ class Params(nn.Module):
         return name in self._parameters or name in self._modules
 
 
+class Leaves:
+    """A module's tensors by its names, as `Params` reads them (`p["wq"]`,
+    `"bq" in p`, `named_parameters`), holding any tensors: the sharded
+    step's view of a block whose pieces were gathered, each tensor still
+    in its autograd graph (a `Params` would make each a new leaf)."""
+
+    def __init__(self, module, leaves: dict, prefix: str = ""):
+        self._t = {n: leaves[prefix + n]
+                   for n, _ in module.named_parameters(recurse=False)}
+        self._c = {n: Leaves(c, leaves, f"{prefix}{n}.")
+                   for n, c in module.named_children()}
+
+    def __getitem__(self, name: str):
+        return self._t[name] if name in self._t else self._c[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._t or name in self._c
+
+    def named_parameters(self, prefix: str = "", recurse: bool = True):
+        for n, t in self._t.items():
+            yield prefix + n, t
+        if recurse:
+            for n, c in self._c.items():
+                yield from c.named_parameters(f"{prefix}{n}.")
+
+
 def with_leaves(module: nn.Module, leaves: dict, prefix: str = ""):
     """A module of `module`'s structure (`Params` and `nn.ModuleList`s)
     whose parameters are `leaves[name]` by dotted name (no copy: each
@@ -210,10 +236,22 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_ff: int = 0) -> Params:
     })
 
 
-def mlp_apply(p, cfg: ModelConfig, x):
+def mlp_apply(p, cfg: ModelConfig, x, lay=None):
+    """x (B, S, d) -> (B, S, d). Under a layout (`sharding/layout.py`)
+    with w_gate / w_up split over `model` by columns and w_down by rows:
+    column-parallel in, row-parallel out, one all-reduce over `model`
+    (a reduce-scatter into the sequence-split training residual)."""
     act = activation(cfg.act)
-    h = act(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
+    if lay is None:
+        h = act(x @ wg) * (x @ wu)
+        return h @ wd
+    region = lay.region(wg.shape[1] < cfg.d_ff)
+    if not region.split:
+        wg, wu, wd = map(region.rep, (wg, wu, wd))
+    x = region.into(x)
+    h = act(x @ wg) * (x @ wu)
+    return region.out(h @ wd)
 
 
 def cross_entropy(logits, labels, softcap_val: float = 0.0):

@@ -24,13 +24,14 @@ with the capacity of its own b_local * S tokens, as the reference inside
 `shard_map`. One all_reduce over `model` combines. The gradients are
 `shard_map`'s transposes: the router and the input enter the expert
 region through an identity whose backward all-reduces over `model`
-(each rank sees only its experts' paths), and the combine's backward is
-the identity. The router's aux loss is computed outside the region from
-batch means taken over `batch_axes`. The reference also has a form for a
-residual sequence-sharded over `model` (an all_gather in, a
-psum_scatter out), the layout GSPMD picks for its sequence-sharded
-training residual; it changes no value, and the port's residual stays
-whole over `model`, so its combine is the one all_reduce.
+(`launch.mesh.enter`: each rank sees only its experts' paths), and the
+combine's backward is the identity (`launch.mesh.reduce`). The router's aux loss is computed outside the region from
+batch means taken over `batch_axes`. Under the sharded step's sequence-
+split training residual (`lay.seq`, `sharding/layout.py`) the region
+takes the reference's `seq_sharded` form (moe.py:118-144): an all-gather
+of the sequence over `model` in and a reduce-scatter out, in place of
+the one all-reduce; their transposes are each other. The expert leaves
+are also split over `data` there (FSDP, gathered by the block).
 """
 from __future__ import annotations
 
@@ -38,13 +39,14 @@ import math
 import re
 
 import torch
-import torch.distributed as dist
 
-from repro_torch.launch.mesh import all_reduce_over, batch_shard, mesh_shape
-from repro_torch.sharding.rules import param_shardings
+from repro_torch.launch.mesh import (all_gather_over, all_reduce_over,
+                                     batch_shard, enter, gather, mesh_shape,
+                                     reduce, scatter)
+from repro_torch.sharding.rules import param_shardings, shard_params
 
 from .common import (ModelConfig, Params, activation, dense_init, init_mlp,
-                     mlp_apply, with_leaves)
+                     mlp_apply)
 
 # the expert leaves (E leading) that expert parallelism splits over `model`
 _EXPERT = re.compile(r"(^|\.)ffn\.w[gud]$")
@@ -56,6 +58,8 @@ def _experts(gen: torch.Generator, cfg: ModelConfig, din: int, dout: int):
     (128, 7168, 4864) would be 18 GB in fp32)."""
     w = torch.empty((cfg.n_experts, din, dout), dtype=cfg.cdtype,
                     device=gen.device)
+    if w.device.type == "meta":     # shapes only (the dry run)
+        return w
     for e in range(cfg.n_experts):
         w[e] = dense_init(gen, (din, dout), 0, cfg.cdtype)
     return w
@@ -144,37 +148,6 @@ def _dispatch_compute(x_flat, p, cfg: ModelConfig, gate_w, gate_idx,
     return out
 
 
-class _EnterExperts(torch.autograd.Function):
-    """Identity forward; backward all-reduces the cotangent over the
-    group (the transpose of a replicated input to `shard_map`)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
-
-
-class _Combine(torch.autograd.Function):
-    """All-reduce (sum) over the group forward; identity backward (the
-    transpose of a `psum` whose result every rank uses alike)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 def expert_names(params) -> list:
     """The names of the expert leaves ((E, ...) stacks) of a model or an
     MoE layer's parameters."""
@@ -191,91 +164,94 @@ def _expert_dims(params, cfg: ModelConfig, mesh) -> dict:
 def local_experts(params, cfg: ModelConfig, mesh):
     """A copy of `params` (a model's, or any module whose expert leaves
     are named `...ffn.wg`, `...ffn.wu`, `...ffn.wd`) that holds
-    only this model rank's experts: each expert leaf narrowed to [r E/n,
-    (r+1) E/n) on the dim the rules shard over `model`; the other leaves
-    are shared with `params`."""
+    only this model rank's experts: `rules.shard_params` cutting only the
+    expert leaves, only over `model` ([r E/n, (r+1) E/n) on the dim the
+    rules shard over it); the other leaves are shared with `params`."""
     n = mesh_shape(mesh)["model"]
     if cfg.n_experts % n:
         raise ValueError(f"{cfg.n_experts} experts do not split over a "
                          f"{n}-way model axis")
-    r = mesh.get_local_rank("model")
-    leaves = dict(params.named_parameters())
-    for name, dim in _expert_dims(params, cfg, mesh).items():
-        size = leaves[name].shape[dim] // n
-        leaves[name] = leaves[name].detach().narrow(
-            dim, r * size, size).clone()
-    return with_leaves(params, leaves)
+    return shard_params(params, mesh, cfg, names=set(expert_names(params)),
+                        axes=("model",))
 
 
 def gather_experts(params, cfg: ModelConfig, mesh) -> dict:
     """The inverse of `local_experts` for the expert leaves: {name: the
     whole (E, ...) tensor}, gathered over `model` on every rank."""
     leaves = dict(params.named_parameters())
-    group = mesh.get_group("model")
-    out = {}
-    for name, dim in _expert_dims(params, cfg, mesh).items():
-        t = leaves[name].detach().contiguous()
-        parts = [torch.empty_like(t) for _ in range(
-            dist.get_world_size(group))]
-        dist.all_gather(parts, t, group=group)
-        out[name] = torch.cat(parts, dim=dim)
-    return out
+    return {name: all_gather_over(leaves[name].detach(), mesh, "model", dim)
+            for name, dim in _expert_dims(params, cfg, mesh).items()}
 
 
-def _mesh_experts(p, cfg: ModelConfig, x, mesh):
+def _mesh_experts(p, cfg: ModelConfig, x, mesh, seq: bool = False):
     """The expert region under a mesh: this rank's experts on its batch
-    shard, combined over `model`."""
+    shard, combined over `model`; with `seq`, x is this rank's part of
+    the sequence and so is the output."""
     n = mesh_shape(mesh)["model"]
     n_local = cfg.n_experts // n
     if cfg.n_experts % n or p["wg"].shape[0] != n_local:
         raise ValueError(f"a {n}-way model axis holds {n_local} of "
                          f"{cfg.n_experts} experts a rank; the layer has "
                          f"{p['wg'].shape[0]} (see local_experts)")
+    x = gather(x, mesh, "model", 1) if seq else enter(x, mesh, "model")
+    router = enter(p["router"], mesh, "model")
     B, S, d = x.shape
-    group = mesh.get_group("model")
-    xf = _EnterExperts.apply(x, group).reshape(B * S, d)
-    gw, gi = _route(xf, _EnterExperts.apply(p["router"], group), cfg.top_k)
+    xf = x.reshape(B * S, d)
+    gw, gi = _route(xf, router, cfg.top_k)
     out = _dispatch_compute(xf, p, cfg, gw, gi,
                             mesh.get_local_rank("model") * n_local, n_local)
-    return _Combine.apply(out, group).reshape(B, S, d)
+    out = out.reshape(B, S, d)
+    return scatter(out, mesh, "model", 1) if seq else \
+        reduce(out, mesh, "model")
 
 
 def load_balance_aux(x, router, cfg: ModelConfig, mesh=None,
-                     batch_axes=()):
+                     batch_axes=(), seq: bool = False):
     """Switch-Transformer aux loss: E * sum_e f_e * P_e over the batch
     (f: the fraction of tokens whose top-1 is e, the first index on a
     tie; P: the mean router probability of e). Under a mesh both are
     means over the whole batch, summed over `batch_axes`; the gradient
     reaches this rank's P as the train step's mean over those ranks
-    expects."""
+    expects. With `seq`, x is this rank's part of the sequence: the
+    means also run over `model`, whose ranks each give 1/n of P's
+    gradient (the router enters replicated, its gradient summed)."""
+    n_seq = mesh_shape(mesh).get("model", 1) if seq else 1
+    if n_seq > 1:
+        router = enter(router, mesh, "model")
     logits = x.float() @ router  # (B, S, E)
     probs = torch.softmax(logits, dim=-1)
     top1 = torch.argmax(logits, dim=-1)
     f = torch.mean(torch.nn.functional.one_hot(
         top1, cfg.n_experts).float(), dim=(0, 1))  # (E,) dispatch fraction
     P = torch.mean(probs, dim=(0, 1))  # (E,) router mass
-    if mesh is not None and batch_axes:
-        n = batch_shard(mesh, batch_axes)[1]
-        f = all_reduce_over(f.clone(), mesh, batch_axes) / n
-        whole = all_reduce_over(P.detach().clone(), mesh, batch_axes) / n
+    axes = tuple(batch_axes or ()) + (("model",) if n_seq > 1 else ())
+    if mesh is not None and axes:
+        n = batch_shard(mesh, batch_axes or ())[1] * n_seq
+        f = all_reduce_over(f.clone(), mesh, axes) / n
+        whole = all_reduce_over(P.detach().clone(), mesh, axes) / n
+        P = P / n_seq
         P = P + (whole - P.detach())
     return cfg.n_experts * torch.sum(f * P)
 
 
 def moe_ffn(p, cfg: ModelConfig, x, mesh=None, batch_axes=("data",),
-            with_aux: bool = False):
+            with_aux: bool = False, lay=None):
     """x: (B, S, d) -> (B, S, d), or (out, aux) when `with_aux`. With a
     `mesh`, expert-parallel over its `model` axis: x is this rank's batch
-    shard over `batch_axes` and `p` holds this rank's experts."""
+    shard over `batch_axes` and `p` holds this rank's experts. Under a
+    layout (`lay`, the sharded step) x is the residual as the rank holds
+    it (its part of the sequence when `lay.seq`)."""
     B, S, d = x.shape
+    seq = lay is not None and lay.seq
     if mesh is None:
         xf = x.reshape(B * S, d)
         gw, gi = _route(xf, p["router"], cfg.top_k)
         out = _dispatch_compute(xf, p, cfg, gw, gi).reshape(B, S, d)
     else:
-        out = _mesh_experts(p, cfg, x, mesh)
+        out = _mesh_experts(p, cfg, x, mesh, seq=seq)
     if "dense" in p:
-        out = out + mlp_apply(p["dense"], cfg, x)
+        out = out + mlp_apply(p["dense"], cfg, x, lay=lay)
     if with_aux:
-        return out, load_balance_aux(x, p["router"], cfg, mesh, batch_axes)
+        return out, load_balance_aux(x, p["router"], cfg, mesh, batch_axes,
+                                     seq=seq)
     return out

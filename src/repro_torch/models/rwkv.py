@@ -10,8 +10,15 @@ The train/prefill scan goes through `kernels/wkv_scan/ops.py` (with the
 carried state as `s0`) where the reference calls its chunked jnp scan
 `wkv_chunk_scan` (rwkv.py:124): the CUDA kernel for CUDA tensors, the
 naive recurrence for CPU tensors. `wkv_chunk_scan` is kept as a torch
-copy, off the model path, to be held against the reference's. Decode is
-plain PyTorch, as in the reference.
+copy, held against the reference's; on `meta` tensors (the dry run) the
+model takes it, as the reference's own scan. Decode is plain PyTorch, as
+in the reference.
+
+Under a layout (`lay=`, `sharding/layout.py`) the time-mix is FSDP only
+(`rwkv/w[rkvgo]` split over `data`, whole over `model`): a duplicated
+region. The channel-mix is tensor-parallel: `cm_k` split by columns,
+`cm_v` by rows, one all-reduce over `model` (a reduce-scatter into the
+sequence-split training residual).
 """
 from __future__ import annotations
 
@@ -107,6 +114,12 @@ def wkv_chunk_scan(r, k, v, logw, u, s0):
     return y.to(r.dtype), s
 
 
+def _scan(r, k, v, logw, u, s0):
+    if r.device.type == "meta":     # the dry run counts the chunked scan
+        return wkv_chunk_scan(r, k, v, logw, u, s0)
+    return wkv_scan(r, k, v, logw, u, s0=s0)
+
+
 def _time_mix(p, cfg, x, last_x, s0):
     B, S, d = x.shape
     nh, hd = rwkv_dims(cfg)
@@ -123,7 +136,7 @@ def _time_mix(p, cfg, x, last_x, s0):
     logw = -torch.exp(p["w0"] + torch.tanh(xw.float() @ p["w_a"]) @ p["w_b"])
     logw = logw.reshape(B, S, nh, hd)
     u = p["u"].reshape(nh, hd)
-    y, sT = wkv_scan(r, k, v, logw, u, s0=s0)
+    y, sT = _scan(r, k, v, logw, u, s0)
     y = rms_norm(y.reshape(B, S, d), p["ln"], cfg.norm_eps) * g
     return y @ p["wo"], sT, x[:, -1, :]
 
@@ -135,11 +148,35 @@ def _channel_mix(p, cfg, xn, last_x):
     return h @ p["cm_v"], xn[:, -1, :]
 
 
-def rwkv_forward(p, cfg: ModelConfig, x, state=None):
+def _regions(p, cfg, lay):
+    """(time-mix leaves, channel-mix leaves, the two regions) under a
+    layout: each leaf replicated over `model` enters its region."""
+    tm = lay.region(False)
+    cm = lay.region(p["cm_k"].shape[1] < cfg.d_ff)
+    names = [n for n, _ in p.named_parameters(recurse=False)]
+    cm_names = ("cm_mix", "cm_k", "cm_v")
+    ptm = {n: tm.rep(p[n]) for n in names if n not in cm_names + ("n2",)}
+    pcm = {n: p[n] if cm.split and n != "cm_mix" else cm.rep(p[n])
+           for n in cm_names}
+    return ptm, pcm, tm, cm
+
+
+def rwkv_forward(p, cfg: ModelConfig, x, state=None, lay=None):
     """Full RWKV6 block (time-mix + channel-mix). x: (B, S, d)."""
     B, S, d = x.shape
     if state is None:
         state = init_rwkv_state(cfg, B, device=x.device)
+    if lay is not None:
+        ptm, pcm, tm, cm = _regions(p, cfg, lay)
+        n1, n2 = lay.resid.rep(p["n1"]), lay.resid.rep(p["n2"])
+        a, sT, last_tm = _time_mix(ptm, cfg, tm.into(rms_norm(
+            x, n1, cfg.norm_eps)), state["last_tm"], state["s"])
+        x = x + tm.out(a)
+        b, last_cm = _channel_mix(pcm, cfg, cm.into(rms_norm(
+            x, n2, cfg.norm_eps)), state["last_cm"])
+        x = x + cm.out(b)
+        return x, {"s": sT.to(cfg.cdtype), "last_tm": last_tm,
+                   "last_cm": last_cm}
     a, sT, last_tm = _time_mix(p, cfg, rms_norm(x, p["n1"], cfg.norm_eps),
                                state["last_tm"], state["s"])
     x = x + a
@@ -162,8 +199,10 @@ def init_rwkv_state(cfg: ModelConfig, batch: int, device=None):
     }
 
 
-def rwkv_decode(p, cfg: ModelConfig, x, state):
-    """One-token decode. x: (B, 1, d). O(1) state update."""
+def rwkv_decode(p, cfg: ModelConfig, x, state, lay=None):
+    """One-token decode. x: (B, 1, d). O(1) state update. Under a layout
+    the channel-mix's product leaves through its region (one all-reduce
+    where `cm_k` / `cm_v` are split)."""
     B = x.shape[0]
     nh, hd = rwkv_dims(cfg)
     x_raw = x[:, 0]
@@ -192,6 +231,9 @@ def rwkv_decode(p, cfg: ModelConfig, x, state):
     prev_cm = state["last_cm"]
     xk = x1n + (prev_cm - x1n) * p["cm_mix"].to(x.dtype)
     h = torch.square(F.relu(xk @ p["cm_k"]))
-    x2 = x1 + h @ p["cm_v"]
+    y2 = h @ p["cm_v"]
+    if lay is not None:
+        y2 = lay.region(p["cm_k"].shape[1] < cfg.d_ff).out(y2[:, None])[:, 0]
+    x2 = x1 + y2
     new_state = {"s": s_new.to(cfg.cdtype), "last_tm": xt, "last_cm": x1n}
     return x2[:, None, :], new_state

@@ -11,8 +11,20 @@ in plain PyTorch, as in the reference.
 The train/prefill scan goes through `kernels/ssd_scan/ops.py` where the
 reference calls its chunked jnp scan `ssd_chunk_scan` (ssm.py:140): the
 CUDA kernel for CUDA tensors, the naive recurrence for CPU tensors. The
-function is the same; `ssd_chunk_scan` is kept as a torch copy, off the
-model path, to be held against the reference's.
+function is the same; `ssd_chunk_scan` is kept as a torch copy, held
+against the reference's; on `meta` tensors (the dry run) the model takes
+it, as the reference's own scan.
+
+Under a layout (`lay=`, `sharding/layout.py`) the block is head-parallel
+where the rules split it (`ssm_ok`: the heads divide `model`): `in_z`,
+`in_x`, `in_dt`, `conv_x`, `conv_xb`, `norm`, `A_log`, `D` and
+`dt_bias` split over `model`, `in_bc` and `conv_bc` whole (B and C are
+shared by all heads), one all-reduce at `out_proj` (a reduce-scatter
+into the sequence-split training residual). The grouped norm is per
+head, so it needs no reduction across ranks. The decode state is whole
+over `model` (`rules.cache_shardings` splits it over the batch only):
+each rank reads its heads' part and the new state's heads and conv
+features are gathered over `model`, one token's worth a step.
 """
 from __future__ import annotations
 
@@ -20,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan.ops import ssd_scan
+from repro_torch.launch.mesh import all_gather_over
 
 from .common import ModelConfig, Params, dense_init, init_rms
 
@@ -127,21 +140,57 @@ def _project(p, cfg, x):
     return z, xs, bc, dt
 
 
-def ssm_forward(p, cfg: ModelConfig, x):
-    """Train/prefill path. x: (B, S, d) -> (out, state)."""
+_SPLIT = ("in_z", "in_x", "in_dt", "conv_x", "conv_xb", "norm", "A_log",
+          "D", "dt_bias", "out_proj")
+
+
+def _local(p, cfg, lay):
+    """(this rank's leaves, its region, its d_inner, its heads)."""
+    d_inner, _, _ = ssm_dims(cfg)
+    region = lay.region(p["in_x"].shape[1] < d_inner)
+    pp = {n: p[n] if region.split and n in _SPLIT else region.rep(p[n])
+          for n, _ in p.named_parameters(recurse=False)}
+    return pp, region, pp["in_x"].shape[1], pp["in_dt"].shape[1]
+
+
+def _gather_heads(t, lay, dim, region):
+    """A head-split decode state -> whole over `model`."""
+    return all_gather_over(t, lay.mesh, "model", dim) if region.split else t
+
+
+def ssm_forward(p, cfg: ModelConfig, x, lay=None, keep_state=True):
+    """Train/prefill path. x: (B, S, d) -> (out, state); under a layout
+    the state is made (whole over `model`) only when `keep_state`."""
+    if lay is not None:
+        p, region, d_inner, nh = _local(p, cfg, lay)
+        x = region.into(x)
     B, S, d = x.shape
-    d_inner, nh, ds = ssm_dims(cfg)
+    if lay is None:
+        d_inner, nh, _ = ssm_dims(cfg)
+    ds = cfg.ssm_state
     z, xs, bc, dt = _project(p, cfg, x)
     xs = _conv_train(xs.float(), p["conv_x"], p["conv_xb"]).to(x.dtype)
     bc = _conv_train(bc.float(), p["conv_bc"], p["conv_bcb"]).to(x.dtype)
     Bm, Cm = torch.split(bc, ds, dim=-1)
     dtp = F.softplus(dt.float() + p["dt_bias"])
     xh = xs.reshape(B, S, nh, cfg.ssm_head_dim)
-    y, hT = ssd_scan(xh, dtp, p["A_log"], Bm, Cm, p["D"])
+    if xh.device.type == "meta":    # the dry run counts the chunked scan
+        y, hT = ssd_chunk_scan(xh, dtp, p["A_log"], Bm, Cm, p["D"])
+    else:
+        y, hT = ssd_scan(xh, dtp, p["A_log"], Bm, Cm, p["D"])
     y = y.reshape(B, S, d_inner) * F.silu(z)
     y = _group_rms(y, p["norm"], nh, cfg.ssm_head_dim, cfg.norm_eps)
     out = y @ p["out_proj"]
-    return out, {"h": hT, "conv": conv_tail(x, p, cfg)}
+    if lay is None:
+        return out, {"h": hT, "conv": conv_tail(x, p, cfg)}
+    if keep_state:
+        hT = _gather_heads(hT, lay, 1, region)
+        tail = conv_tail(x, p, cfg)
+        tail = torch.cat([_gather_heads(tail[..., :d_inner], lay, 2, region),
+                          tail[..., d_inner:]], dim=-1)
+    else:
+        hT = tail = None
+    return region.out(out), {"h": hT, "conv": tail}
 
 
 def conv_tail(x, p, cfg):
@@ -165,11 +214,21 @@ def init_ssm_state(cfg: ModelConfig, batch: int, device=None):
     }
 
 
-def ssm_decode(p, cfg: ModelConfig, x, state):
+def ssm_decode(p, cfg: ModelConfig, x, state, lay=None):
     """One-token decode. x: (B, 1, d) -> (out, new_state). O(1) in
     context."""
     B = x.shape[0]
     d_inner, nh, ds = ssm_dims(cfg)
+    region = None
+    if lay is not None:
+        d_full = d_inner
+        p, region, d_inner, nh = _local(p, cfg, lay)
+        if region.split:    # this rank's heads of the whole state
+            lo = lay.r_model * d_inner
+            conv = state["conv"]
+            state = {"h": state["h"].narrow(1, lay.r_model * nh, nh),
+                     "conv": torch.cat([conv[..., lo:lo + d_inner],
+                                        conv[..., d_full:]], dim=-1)}
     z, xs, bc, dt = _project(p, cfg, x)
     feats = torch.cat([xs[:, 0], bc[:, 0]], dim=-1).float()
     conv_buf = torch.cat([state["conv"], feats[:, None, :]], dim=1)  # (B,K,C)
@@ -191,4 +250,11 @@ def ssm_decode(p, cfg: ModelConfig, x, state):
     y = _group_rms(y, p["norm"], nh, cfg.ssm_head_dim, cfg.norm_eps)
     out = y @ p["out_proj"]
     new_state = {"h": h.to(state["h"].dtype), "conv": conv_buf[:, 1:, :]}
+    if region is not None:
+        conv = new_state["conv"]
+        new_state = {"h": _gather_heads(new_state["h"], lay, 1, region),
+                     "conv": torch.cat([
+                         _gather_heads(conv[..., :d_inner], lay, 2, region),
+                         conv[..., d_inner:]], dim=-1)}
+        out = region.out(out)
     return out, new_state

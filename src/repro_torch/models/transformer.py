@@ -25,6 +25,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.mesh import mesh_shape
+from repro_torch.sharding.layout import Layout
+
 from . import attention as attn
 from . import moe as moe_mod
 from . import rwkv as rwkv_mod
@@ -91,53 +94,75 @@ def attn_mlp_block(p, cfg: ModelConfig, x, ctx, cache, *, cross=False,
     reference's text-only serving does) and keeps the projected keys and
     values as its static decode cache."""
     mode = ctx["mode"]
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    lay = ctx.get("lay")
+    if lay is not None:
+        p = lay.fsdp(p)
+    norm = _norm(lay)
+    h = norm(x, p["ln1"], cfg)
     window = ctx.get("window", 0)
     if mode == "decode":
         if cross:
             a, _ = attn.attn_decode(p["attn"], cfg, h, ctx["t"],
-                                    dict(cache, static=True))
+                                    dict(cache, static=True), lay=lay)
             new_cache = cache
         else:
             a, new_cache = attn.attn_decode(p["attn"], cfg, h, ctx["t"],
-                                            cache, window=window)
+                                            cache, window=window, lay=lay)
     else:
         kv_emb = ctx.get("img_emb") if cross else None
         a, (k, v) = attn.attn_forward(p["attn"], cfg, h, ctx["positions"],
-                                      window=window, kv_emb=kv_emb)
+                                      window=window, kv_emb=kv_emb, lay=lay)
         new_cache = None
         if mode == "prefill" and cross:
-            new_cache = {"k": k, "v": v}
+            new_cache = {n: attn.cache_layout(t, lay, cfg.n_kv_heads)
+                         for n, t in (("k", k), ("v", v))}
         elif mode == "prefill":
             clen = ctx["cache_len"]
             S_full = k.shape[1]
             new_cache = attn.fill_kv_cache(
-                attn.init_kv_cache(cfg, x.shape[0], clen, device=x.device),
+                attn.init_kv_cache(cfg.replace(n_kv_heads=k.shape[2]),
+                                   x.shape[0], clen, device=x.device),
                 k[:, -min(clen, S_full):], v[:, -min(clen, S_full):],
                 first_pos=max(0, S_full - clen))
+            for n in ("k", "v"):
+                new_cache[n] = attn.cache_layout(new_cache[n], lay,
+                                                 cfg.n_kv_heads)
     if "ln1_post" in p:
-        a = rms_norm(a, p["ln1_post"], cfg.norm_eps)
+        a = norm(a, p["ln1_post"], cfg)
     x = x + a
-    h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+    h2 = norm(x, p["ln2"], cfg)
     if use_moe:
         f = moe_mod.moe_ffn(p["ffn"], cfg, h2, mesh=ctx["mesh"],
                             batch_axes=ctx["batch_axes"],
-                            with_aux=mode == "train")
+                            with_aux=mode == "train", lay=lay)
         if mode == "train":
             f, new_cache = f
     else:
-        f = mlp_apply(p["ffn"], cfg, h2)
+        f = mlp_apply(p["ffn"], cfg, h2, lay=lay)
     if "ln2_post" in p:
-        f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
+        f = norm(f, p["ln2_post"], cfg)
     return x + f, new_cache
 
 
+def _norm(lay):
+    """rms_norm of the residual: under a sequence-split residual its
+    scale enters as a replicated leaf of each rank's own tokens."""
+    if lay is None:
+        return lambda x, scale, cfg: rms_norm(x, scale, cfg.norm_eps)
+    return lambda x, scale, cfg: rms_norm(x, lay.resid.rep(scale),
+                                          cfg.norm_eps)
+
+
 def ssm_block(p, cfg: ModelConfig, x, ctx, cache):
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    lay = ctx.get("lay")
+    if lay is not None:
+        p = lay.fsdp(p)
+    h = _norm(lay)(x, p["ln"], cfg)
     if ctx["mode"] == "decode":
-        a, new_state = ssm_mod.ssm_decode(p["ssm"], cfg, h, cache)
+        a, new_state = ssm_mod.ssm_decode(p["ssm"], cfg, h, cache, lay=lay)
     else:
-        a, state = ssm_mod.ssm_forward(p["ssm"], cfg, h)
+        a, state = ssm_mod.ssm_forward(p["ssm"], cfg, h, lay=lay,
+                                       keep_state=ctx["mode"] == "prefill")
         new_state = None
         if ctx["mode"] == "prefill":
             new_state = {"h": state["h"].to(cfg.cdtype),
@@ -146,9 +171,12 @@ def ssm_block(p, cfg: ModelConfig, x, ctx, cache):
 
 
 def rwkv_block(p, cfg: ModelConfig, x, ctx, state):
+    lay = ctx.get("lay")
+    if lay is not None:
+        p = lay.fsdp(p)
     if ctx["mode"] == "decode":
-        return rwkv_mod.rwkv_decode(p["rwkv"], cfg, x, state)
-    return rwkv_mod.rwkv_forward(p["rwkv"], cfg, x, state)
+        return rwkv_mod.rwkv_decode(p["rwkv"], cfg, x, state, lay=lay)
+    return rwkv_mod.rwkv_forward(p["rwkv"], cfg, x, state, lay=lay)
 
 
 def init_ssm_block(cfg: ModelConfig, gen: torch.Generator) -> Params:
@@ -179,19 +207,50 @@ def init_embed(cfg: ModelConfig, gen: torch.Generator) -> Params:
     return Params(p)
 
 
-def embed_tokens(p, cfg: ModelConfig, tokens):
-    if cfg.n_codebooks:  # tokens (B, S, ncb): the codebooks' embeddings summed
-        return sum(p["embed"][n][tokens[..., n].long()]
-                   for n in range(cfg.n_codebooks))
-    return p["embed"][tokens.long()]
+def embed_tokens(p, cfg: ModelConfig, tokens, lay=None):
+    """Under a layout whose embedding is split over `model` by vocabulary
+    rows: each rank looks up the tokens in its rows (zeros elsewhere) and
+    one all-reduce over `model` sums (a reduce-scatter into the
+    sequence-split training residual)."""
+    E = p["embed"] if lay is None else lay.leaf(p["embed"])
+    V = E.shape[-2]
+    if lay is None or V == cfg.vocab:
+        if cfg.n_codebooks:  # tokens (B, S, ncb): the codebooks' sum
+            return sum(E[n][tokens[..., n].long()]
+                       for n in range(cfg.n_codebooks))
+        return E[tokens.long()]
+    lo = lay.r_model * V
+
+    def look(e, tok):
+        t = tok.long() - lo
+        ok = (t >= 0) & (t < V)
+        return e[t.clamp(0, V - 1)] * ok[..., None].to(e.dtype)
+    if cfg.n_codebooks:
+        x = sum(look(E[n], tokens[..., n]) for n in range(cfg.n_codebooks))
+    else:
+        x = look(E, tokens)
+    return lay.region(True).out(x)
 
 
-def logits_head(p, cfg: ModelConfig, x):
-    if cfg.n_codebooks:  # (B, S, ncb, V)
-        return torch.einsum("bsd,ndv->bsnv", x, p["head"])
-    if cfg.tie_embeddings:
-        return x @ p["embed"].T
-    return x @ p["head"]
+def logits_head(p, cfg: ModelConfig, x, lay=None):
+    """Under a layout whose head (or tied embedding) is split over
+    `model` by vocabulary columns, the logits stay split: (..., V / n)
+    on each rank, as the reference's `_logits_sharding`."""
+    if lay is None:
+        if cfg.n_codebooks:  # (B, S, ncb, V)
+            return torch.einsum("bsd,ndv->bsnv", x, p["head"])
+        if cfg.tie_embeddings:
+            return x @ p["embed"].T
+        return x @ p["head"]
+    W = lay.leaf(p["embed"] if cfg.tie_embeddings else p["head"])
+    region = lay.region((W.shape[-2] if cfg.tie_embeddings
+                         else W.shape[-1]) < cfg.vocab)
+    if not region.split:
+        W = region.rep(W)
+    x = region.into(x)
+    if cfg.n_codebooks:
+        return torch.einsum("bsd,ndv->bsnv", x, W)
+    return x @ W.T if cfg.tie_embeddings else x @ W
 
 
 # ---------------------------------------------------------------------------
@@ -414,19 +473,31 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     `img_proj`); without them a cross layer attends to its own input.
 
     With a `mesh` (`launch/mesh.py`), tokens (and cache, img_emb) are
-    this rank's shard of the batch over `batch_axes`, and the moe
-    family's experts run expert-parallel over the mesh's `model` axis
-    (`params` holding this rank's experts, `moe.local_experts`); every
-    other layer runs whole on each rank.
+    this rank's shard of the batch over `batch_axes`, and `params` hold
+    this rank's pieces (`rules.shard_params`; `moe.local_experts` cuts
+    only the experts): each layer runs sharded where its leaves are
+    split (`sharding/layout.py`) and whole where they are not. In train
+    mode with the vocabulary split over `model`, `S % n_model == 0` and
+    `S > n_model`, the residual is split along the sequence over `model`
+    (the reference's `_constrain`). The logits come out split over
+    `model` where the head is.
     """
     _known(cfg)
     B, S = tokens.shape[:2]
-    x = embed_tokens(params["embed"], cfg, tokens)
+    lay = None
+    if mesh is not None:
+        n = mesh_shape(mesh).get("model", 1)
+        seq = (mode == "train" and n > 1 and S % n == 0 and S > n
+               and params["embed"]["embed"].shape[-2] < cfg.vocab)
+        lay = Layout(mesh, seq=seq)
+    x = embed_tokens(params["embed"], cfg, tokens, lay)
     if img_emb is not None and "img_proj" in params["embed"]:
-        img_emb = img_emb.to(cfg.cdtype) @ params["embed"]["img_proj"]
+        proj = params["embed"]["img_proj"]
+        img_emb = img_emb.to(cfg.cdtype) @ (proj if lay is None
+                                            else lay.leaf(proj))
     positions = torch.arange(S, dtype=torch.int32, device=x.device)
     ctx = {"mode": mode, "positions": positions, "t": t, "img_emb": img_emb,
-           "mesh": mesh, "batch_axes": batch_axes,
+           "mesh": mesh, "batch_axes": batch_axes, "lay": lay,
            "cache_len": cache_len or (cfg.decode_window or S)}
     keep = mode in ("prefill", "decode")
     new_cache = None
@@ -515,5 +586,5 @@ def forward(params, cfg: ModelConfig, tokens, *, mode: str = "train",
     if last_only:
         # serving only needs the final position's logits
         x = x[:, -1:]
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return logits_head(params["embed"], cfg, x), new_cache
+    x = _norm(lay)(x, params["final_norm"], cfg)
+    return logits_head(params["embed"], cfg, x, lay), new_cache

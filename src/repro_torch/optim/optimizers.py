@@ -23,12 +23,15 @@ at index 3) and updates each stack as the reference updates the leaf,
 layer by layer (`_maybe_layerwise`) above `_LAYERWISE_BYTES`. Unnamed
 lists are updated tensor by tensor.
 
-Under a mesh a leaf may be split over a process group (the MoE's experts
-over `model`): `update(..., split={name: group})` names them. Adafactor's
-clip then takes the RMS of the whole leaf (or layer), its sum of squares
-and element count summed over the group, and its layer-by-layer choice
-counts the whole leaf's bytes; the elementwise optimizers ignore
-`split`.
+Under a mesh a leaf may be split over process groups (FSDP over `data`,
+tensor parallelism or the MoE's experts over `model`): `update(...,
+split={name: {dim: group}})` names them, each dim counted from the
+leaf's end (-1 its last). Adafactor then factors the whole leaf: a row
+or column mean over a split dim, and the mean of the row factor over a
+split row dim, sum over that dim's group; the clip takes the RMS of the
+whole leaf (or layer), its sum of squares and element count summed over
+every group; its layer-by-layer choice counts the whole leaf's bytes.
+The elementwise optimizers ignore `split`.
 """
 from __future__ import annotations
 
@@ -38,6 +41,8 @@ from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.launch.mesh import all_reduce_in
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,33 +171,47 @@ def adafactor(decay: float = 0.99, eps: float = 1e-30,
             f[key] = {k: t.to(p.device) for k, t in fac.items()}
         return {"f": f, "step": 0}
 
-    def rms(step, group):
-        """The RMS of the whole leaf `step` is a shard of over `group`
-        (of `step` itself without one)."""
-        if group is None:
+    def rms(step, split):
+        """The RMS of the whole leaf `step` is a piece of ({dim: group},
+        of `step` itself without one)."""
+        if not split:
             return torch.sqrt(torch.mean(torch.square(step)))
         acc = torch.stack([torch.sum(torch.square(step)).double(),
                            torch.tensor(float(step.numel()),
                                         dtype=torch.float64,
                                         device=step.device)])
-        dist.all_reduce(acc, group=group)
+        for group in split.values():
+            all_reduce_in(acc, group)
         return torch.sqrt(acc[0] / acc[1]).to(step.dtype)
 
-    def upd(g, f, group=None):
+    def mean(t, dim, group, keepdim=False):
+        """The mean over dim `dim` of the whole tensor `t` is a piece of
+        along that dim over `group`."""
+        if group is None:
+            return t.mean(dim, keepdim=keepdim)
+        out = t.sum(dim, keepdim=keepdim)
+        all_reduce_in(out, group)
+        return out / (t.shape[dim] * dist.get_world_size(group))
+
+    def upd(g, f, split=None):
         """One stack's gradient (or one leading index of it): returns the
         clipped step and writes the factors of `f` in place."""
+        split = split or {}
         g2 = torch.square(g) + eps
         if g.dim() >= 2:
-            f["r"].mul_(decay).add_(g2.mean(-1), alpha=_f32(1 - decay))
-            f["c"].mul_(decay).add_(g2.mean(-2), alpha=_f32(1 - decay))
+            f["r"].mul_(decay).add_(mean(g2, -1, split.get(-1)),
+                                    alpha=_f32(1 - decay))
+            f["c"].mul_(decay).add_(mean(g2, -2, split.get(-2)),
+                                    alpha=_f32(1 - decay))
             r, c = f["r"], f["c"]
             denom = torch.sqrt(r[..., None] * c[..., None, :]
-                               / (r.mean(-1, keepdim=True)[..., None] + eps))
+                               / (mean(r, -1, split.get(-2), keepdim=True)
+                                  [..., None] + eps))
         else:
             f["v"].mul_(decay).add_(g2, alpha=_f32(1 - decay))
             denom = torch.sqrt(f["v"])
         step = g / (denom + eps)
-        norm = rms(step, group)
+        norm = rms(step, split)
         return step / torch.clamp(norm / clip, min=1.0)
 
     @torch.no_grad()
@@ -202,15 +221,15 @@ def adafactor(decay: float = 0.99, eps: float = 1e-30,
             P = _stack(params, members, lead)
             G = _stack(grads, members, lead)
             f = state["f"][key]
-            group = split.get(members[0][1])
-            whole = P.numel() * (1 if group is None
-                                 else dist.get_world_size(group))
+            parts = split.get(members[0][1]) or {}
+            whole = P.numel() * math.prod(dist.get_world_size(g)
+                                          for g in parts.values())
             if P.dim() >= 3 and whole * 4 > _LAYERWISE_BYTES:
                 step = torch.stack([
-                    upd(G[i], {k: t[i] for k, t in f.items()}, group)
+                    upd(G[i], {k: t[i] for k, t in f.items()}, parts)
                     for i in range(P.shape[0])])
             else:
-                step = upd(G, f, group)
+                step = upd(G, f, parts)
             new = (P - lr * step).reshape((-1,) + P.shape[len(lead):])
             for j, (_, name) in enumerate(members):
                 params[name].copy_(new[j])

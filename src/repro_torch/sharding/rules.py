@@ -15,15 +15,20 @@ spec is the reference leaf's without those leading (always None)
 entries. Caches are lists of per-layer dicts; their list indices are
 the stacked dims in the same way.
 
-The runtime shards only the MoE's experts (`models/moe.py`, over
-`model`); the rest of these specs describe the reference's layout for
-the dry run that is still to be ported.
+`shard_params` cuts a model to the piece of each leaf these specs give
+a rank (`data` as FSDP, `model` as tensor parallelism), and the sharded
+step (`sharding/layout.py`, the models' `lay=` paths) runs on those
+pieces; `gather_params` gives the whole leaves back. The MoE's
+`local_experts` is the case that cuts only the expert leaves over
+`model`.
 """
 from __future__ import annotations
 
 import re
 
-from repro_torch.launch.mesh import mesh_shape
+import math
+
+from repro_torch.launch.mesh import all_gather_over, batch_shard, mesh_shape
 
 
 class PartitionSpec(tuple):
@@ -280,3 +285,103 @@ def placements(spec, mesh) -> list:
         for a in axes:
             out[names.index(a)] = Shard(d)
     return out
+
+
+# ---------------------------------------------------------------------------
+# a model's pieces
+# ---------------------------------------------------------------------------
+
+def leaf_split(t) -> dict:
+    """{dim: mesh axis} over which a leaf of `shard_params` is split
+    ({} for a whole leaf)."""
+    return getattr(t, "mesh_split", None) or {}
+
+
+def shard_params(params, mesh, cfg=None, *, names=None,
+                 axes=("data", "model")):
+    """A copy of `params` that holds this rank's piece of each leaf: on
+    each dim whose spec names one of `axes` (of more than one rank), the
+    1/n slice at this rank's index along that axis. `names` limits the
+    cut to those leaves; the others are shared with `params`. Each cut
+    leaf carries its {dim: axis} as `mesh_split` (read by `leaf_split`,
+    the layers, the train step and the optimizer)."""
+    from repro_torch.models.common import with_leaves
+    shape = mesh_shape(mesh)
+    specs = param_shardings(mesh, params, cfg)
+    leaves, splits = {}, {}
+    for name, t in params.named_parameters():
+        leaves[name] = t
+        if names is not None and name not in names:
+            continue
+        split = {}
+        for d, entry in enumerate(specs[name]):
+            if isinstance(entry, tuple):
+                raise ValueError(f"{name}: spec {specs[name]} puts one dim "
+                                 "over several axes")
+            if entry in axes and shape.get(entry, 1) > 1:
+                split[d] = entry
+        if not split:
+            continue
+        piece = t.detach()
+        for d, a in split.items():
+            n = shape[a]
+            if piece.shape[d] % n:
+                raise ValueError(f"{name}: dim {d} of {tuple(t.shape)} does "
+                                 f"not split over {n} ranks of {a}")
+            size = piece.shape[d] // n
+            piece = piece.narrow(d, mesh.get_local_rank(a) * size, size)
+        leaves[name] = piece.clone()
+        splits[name] = split
+    out = with_leaves(params, leaves)
+    for name, t in out.named_parameters():
+        if name in splits:
+            t.mesh_split = splits[name]
+    return out
+
+
+def gather_tensor(t, mesh, split: dict):
+    """The whole tensor of a piece split over {dim: axis} (no grad)."""
+    for d, a in sorted(split.items()):
+        t = all_gather_over(t.detach(), mesh, a, d)
+    return t
+
+
+def gather_params(params, mesh):
+    """The inverse of `shard_params`: a module of `params`' structure
+    whose leaves are whole on every rank (uncut leaves are shared)."""
+    from repro_torch.models.common import with_leaves
+    return with_leaves(params, {
+        n: gather_tensor(t, mesh, leaf_split(t)) if leaf_split(t) else t
+        for n, t in params.named_parameters()})
+
+
+def shard_tree(tree, specs, mesh):
+    """A tree of whole tensors (a cache) -> this rank's pieces under its
+    tree of specs (`cache_shardings`): each dim cut at this rank's index
+    over the axes it names (several axes: the first major, as
+    `batch_shard`). A dim cut over `model` is marked in the piece's
+    `mesh_split`, as the sharded step's own caches are."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [shard_tree(v, s, mesh) for v, s in zip(tree, specs)]
+    t, split = tree, {}
+    for d, entry in enumerate(specs):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        i, n = batch_shard(mesh, axes)
+        if n > 1:
+            t = t.narrow(d, i * (t.shape[d] // n), t.shape[d] // n)
+            if axes == ("model",):
+                split[d] = "model"
+    t = t.clone()
+    if split:
+        t.mesh_split = split
+    return t
+
+
+def split_factor(t, mesh) -> int:
+    """How many pieces the whole leaf of `t` has over the mesh."""
+    shape = mesh_shape(mesh)
+    return math.prod(shape[a] for a in leaf_split(t).values())

@@ -10,9 +10,11 @@ moe qwen3-moe-235b-a22b families, one prefill and decode step of the
 vlm llama-3.2-vision-11b (with images) and the audio musicgen-medium
 (with codebooks), two training steps of smoke qwen2.5-3b and rwkv6-3b
 with a checkpoint, and, on a one-rank gloo world, a pod ring exchange
-and ensemble vote and an expert-parallel MoE train step with Adafactor
-(the mesh, sharding, pod and MoE mesh modules) on the CPU loads neither
-JAX nor any module of the reference package `repro`."""
+and ensemble vote, an expert-parallel MoE train step with Adafactor and
+a sharded hybrid train step (the mesh, sharding, pod and MoE mesh
+modules), and a dry run with its roofline and the pods' dry run on fake
+worlds (the dry-run and roofline modules) on the CPU loads neither JAX
+nor any module of the reference package `repro`."""
 import os
 import subprocess
 import sys
@@ -157,8 +159,22 @@ with tempfile.TemporaryDirectory() as d:
             m, opt.init(dict(m.named_parameters())),
             {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
         assert bool(torch.isfinite(loss))
+        from repro_torch.sharding.rules import gather_params, shard_params
+        cfg = get_smoke("zamba2-7b").replace(dtype="float32")
+        m = shard_params(init_params(cfg, torch.Generator().manual_seed(0)),
+                         mesh, cfg)
+        loss = make_train_step(cfg, make_optimizer("sgd"), constant(1e-3),
+                               mesh=mesh)(m, {"step": 0}, {
+            "tokens": toks[:, :-1], "labels": toks[:, 1:]})
+        assert bool(torch.isfinite(loss)) and gather_params(m, mesh)
     finally:
         dist.destroy_process_group()
+from repro_torch.launch.dryrun import run_one
+from repro_torch.roofline import roofline_terms
+rec = run_one("rwkv6-3b", "decode_32k", False, cfg=get_smoke("rwkv6-3b"),
+              dims=(2, 2))
+assert roofline_terms(rec)["step_lower_bound_s"] > 0
+assert fedpae_pods.dryrun(dims=(2, 1, 1))["exchange_bytes_per_device"] > 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
