@@ -71,18 +71,19 @@
    monitor asked for. Prints the serve counters (regret, latency p50 and
    p99, window accuracy), net_s against select_s and peak memory.
 4c. Async, configuration 9: examples/gossip_churn.py at its full size
-   (prediction world of 64 clients x 2 models, V = 128, C = 8, world
-   seed 17; small-world k = 4; lossy gossip with inboxes of 64, push,
-   lognormal churn; select_debounce 0.5; GA 24 x 8, k = 5) on the card
-   at store capacity 16 (traced, both sinks written and read back as
-   strict JSON) and unbounded, and at capacity 16 on the CPU. Card and
-   CPU must give equal events, net dicts, bench sizes, select batches
-   and selection keys; fitness launches 17 x the batches that ran; the
-   bounded-vs-unbounded gap of the final mean validation accuracy <=
-   0.02; after the bounded run the cached acc must equal a one-shot
-   selection_stats exactly and S within 2e-4, and a gather of a batch
-   with repeated clients must equal the resident rows bitwise. Prints MB
-   on the wire, coverage, net_s / select_s, events/s and the metrics.
+   (the spec from the port driver's make_spec: prediction world of 64
+   clients x 2 models, V = 128, C = 8, world seed 17; small-world k = 4;
+   lossy gossip with inboxes of 64, push, lognormal churn;
+   select_debounce 0.5; GA 24 x 8, k = 5) on the card at store capacity
+   16 (traced, both sinks written and read back as strict JSON) and
+   unbounded, and at capacity 16 on the CPU. Card and CPU must give
+   equal events, net dicts, bench sizes, select batches and selection
+   keys; fitness launches 17 x the batches that ran; the bounded-vs-
+   unbounded gap of the final mean validation accuracy <= 0.02; after
+   the bounded run the cached acc must equal a one-shot selection_stats
+   exactly and S within 2e-4, and a gather of a batch with repeated
+   clients must equal the resident rows bitwise. Prints MB on the wire,
+   coverage, net_s / select_s, events/s and the metrics.
 4d. Async, configuration 10: examples/specs/byzantine_ring.json at its
    full size (byzantine, corruption, crash-restart, the validation gate)
    on the card and on the CPU: events, net (faults and admission
@@ -96,6 +97,23 @@
    GA picked, printed beside); with the monitor on, the same queries,
    one drift, at least one re-selection, and every select tick only the
    monitor made ran a GA; launches 17 x the batches that ran.
+4g. The port's example drivers (repro_torch.examples: lossy_links,
+   quickstart, async_decentralized, gossip_churn, pareto_front,
+   beyond_paper, byzantine_peers, serve_drift) at their full sizes on the
+   card, in process, each through its own main(["--json", path]): its
+   own asserts (the headline claims of lossy_links, byzantine_peers and
+   serve_drift, gossip_churn's two, async_decentralized's, every
+   determinism rerun) must pass; its rows must read back as strict JSON
+   with the expected names (DRIVERS: the reference's where it writes
+   rows); its fitness launches, reset just before, must equal 2 G + 1
+   times its sync selections and the select batches that ran a GA
+   (driver_launches; 0 for lossy_links, 2 x 40 + 1 = 81 for
+   pareto_front's single-client select_ensemble). Prints each one's
+   wall seconds and peak device memory beside the card's name and power
+   limit. lossy_links runs again on the CPU at full size: its rows must
+   equal the card's byte for byte. Then the single-client fitness entry
+   at pareto_front's (P, M) and (2 P, M) (only that driver may launch
+   it) is held against its plain version and timed with its bound.
 4b''. Restack: the sync slice's fleet selected once on the restack path
    (`selection.device_resident=False`: a host restack and fresh
    statistics every select) and once on the resident path, in turns
@@ -146,9 +164,9 @@
    fitness launches on the card, k members everywhere, fleet-mean
    validation accuracy within 0.02 of the CPU's.
 4f. Kernel: ensemble_fitness at every (N, P, M) shape configurations
-   10-12 and 15 and the restack select launched (recorded from their
-   runs), held against its plain version; at each path's widest batches
-   timed against it with its bound.
+   10-12 and 15, the restack select and the example drivers launched
+   (recorded from their runs), held against its plain version; at each
+   path's widest batches timed against it with its bound.
 5. Kernel: flash_attention at the reference's test shapes and variants,
    head dim 112, bf16 window and softcap at hd 64, 112 and 128, a ragged
    S = 100, the serving slice's shape (4, 32, 8, 2048, 2048, 128),
@@ -315,11 +333,12 @@
    the `kernels` JSON line (ensemble_fitness's `launches` is the sync
    slice's count; `launches_by_path` adds each async run's, those of
    configurations 10-12 included, configuration 15's select, the
-   restack select and the tables' smoke grid, `by_shape` the timings at
-   every path's shape; flash_attention's `launches` is llama3-8b's
-   serve_batch, its `launches_by_path` every serving path's and the pod
-   vote's, its
-   `by_shape` every timed shape's), then the result line.
+   restack select, the tables' smoke grid and each example driver's,
+   `by_shape` the timings at every path's shape, `single_by_shape` the
+   single-client entry's at pareto_front's; flash_attention's
+   `launches` is llama3-8b's serve_batch, its `launches_by_path` every
+   serving path's and the pod vote's, its `by_shape` every timed
+   shape's), then the result line.
 
 Exits non-zero at the first failure, and when no CUDA device is present.
 TF32 is off for cuBLAS and cuDNN throughout, so every fp32 product is a
@@ -399,8 +418,8 @@ ASYNC_PAPER = {  # configuration 8's schedule (examples/async_decentralized)
     "mode": "async", "speed_lognorm_sigma": 0.6, "link_latency": 0.05,
     "select_debounce": 0.5,
     "train_cost": {"name": "affine", "params": {"base": 1.0, "slope": 0.3}}}
-GOSSIP = {"n": 64, "mpc": 2, "capacity": 16, "V": 128, "C": 8,
-          "world_seed": 17, "pop": 24, "gens": 8, "k": 5}  # configuration 9
+GOSSIP = {"n": 64, "mpc": 2, "capacity": 16, "world_seed": 17, "pop": 24,
+          "gens": 8, "k": 5}  # configuration 9
 GOSSIP_GAP_MAX = 0.02   # bounded-vs-unbounded val-acc (examples/gossip_churn)
 FLEET_SPEC = "examples/specs/fleet_sweep.json"      # configuration 13
 # configuration 13 at its full size as the JAX package computes it on the
@@ -1018,31 +1037,18 @@ def async_paper_phase(torch, sync_exp, sync_res):
 
 
 def gossip_spec(capacity, obs):
-    """Configuration 9: examples/gossip_churn.py's make_spec at its full
-    size (64 clients x 2 models on a prediction world, small-world k = 4,
-    lossy gossip with bounded inboxes, lognormal churn, GA 24 x 8)."""
+    """Configuration 9: examples/gossip_churn.py's make_spec (the port's
+    driver, repro_torch.examples.gossip_churn) at its full size (64
+    clients x 2 models on a prediction world, small-world k = 4, lossy
+    gossip with bounded inboxes, lognormal churn, GA 24 x 8), its obs
+    section replaced by `obs`."""
+    from repro_torch.examples.gossip_churn import make_spec
     from repro_torch.sim import ExperimentSpec
     g = GOSSIP
-    return ExperimentSpec.from_dict({
-        "data": {"kind": "prediction_world", "n_clients": g["n"],
-                 "n_classes": g["C"], "n_val": g["V"],
-                 "models_per_client": g["mpc"], "seed": g["world_seed"]},
-        "selection": {"pop_size": g["pop"], "generations": g["gens"],
-                      "k": g["k"], "store_capacity": capacity},
-        "network": {
-            "topology": "small_world", "topology_k": 4,
-            "transport": {"name": "gossip", "params": {
-                "base_latency": 0.05, "jitter": 1.0, "bandwidth": 50e6,
-                "drop_prob": 0.1, "inbox_capacity": 64,
-                "sizer": {"name": "prediction_matrix",
-                          "params": {"n_val": g["V"], "n_classes": g["C"]}}}},
-            "gossip": "push",
-            "churn": {"name": "lognormal", "params": {
-                "availability_beta": 0.1, "leave_prob": 0.05}}},
-        "schedule": {"mode": "async", "select_debounce": 0.5,
-                     "train_cost": {"name": "affine",
-                                    "params": {"base": 1.0, "slope": 0.2}}},
-        "obs": obs, "seed": 0})
+    d = make_spec(g["n"], g["mpc"], capacity, world_seed=g["world_seed"],
+                  pop=g["pop"], gens=g["gens"], k=g["k"]).to_dict()
+    d["obs"] = obs
+    return ExperimentSpec.from_dict(d)
 
 
 def _final_val_acc(res):
@@ -1412,6 +1418,169 @@ def serve_drift_phase(torch):
     for v in out.values():
         del v["res"]
     out["shapes"] = shapes
+    return out
+
+
+DRIVERS = {  # the port's example drivers (phase 4g) -> their --json rows
+    "lossy_links": [f"repair_drop{d}_{t}" for d in (0, 10, 30)
+                    for t in ("off", "on")],
+    "quickstart": ["local_ensemble", "fedpae"],
+    "async_decentralized": [f"client{c}" for c in range(5)] + ["fleet"],
+    "gossip_churn": ["bounded", "unbounded", "checkpoint"],
+    "pareto_front": ["pareto_client0"],
+    "beyond_paper": ["fedpae", "clustered_gossip", "des"],
+    "byzantine_peers": [f"byz{p}_{a}" for p in (0, 10, 30)
+                        for a in ("gated", "ungated", "allpeers")],
+    "serve_drift": ["serve_monitored", "serve_frozen", "determinism"]
+    + [f"curve_thr{t}" for t in (5, 12, 25, 40)],
+}
+
+
+def driver_launches(name, mod, runs):
+    """The fitness launches a driver's runs must make, as {2 G + 1:
+    selections}: one a sync run, one a select batch that ran a GA in an
+    async run, and pareto_front's one single-client selection outside
+    any run."""
+    parts = {}
+    for res in runs:
+        if res.engine is None:
+            continue
+        per = 2 * res.spec.selection.generations + 1
+        n = 1 if res.mode == "sync" else len(ran_batches(res))
+        parts[per] = parts.get(per, 0) + n
+    if name == "pareto_front":
+        per = 2 * mod.make_spec().selection.generations + 1
+        parts[per] = parts.get(per, 0) + 1
+    return parts
+
+
+def single_fitness_timing(torch, shape):
+    """The single-client ensemble_fitness entry at `shape` (P, M), held
+    against its plain version and timed against it with its bound."""
+    import numpy as np
+
+    from repro_torch.kernels.ensemble_fitness import kernel, ref
+    P, M = shape
+    pop, acc, S = (x[0] for x in make_inputs(
+        torch, np.random.default_rng(2), 1, P, M))
+
+    def run_kernel():
+        return kernel.ensemble_fitness(pop, acc, S)
+
+    def run_plain():
+        return ref.ensemble_fitness_ref(pop, acc, S)
+    got = run_kernel()
+    torch.cuda.synchronize()
+    err = max(float((g - w).abs().max()) for g, w in zip(got, run_plain()))
+    check(err <= TOL, f"ensemble_fitness[single] at {shape} disagrees "
+                      f"with its plain version: {err}")
+    p1, k1, k2, p2 = (time_ms(torch, fn) for fn in
+                      (run_plain, run_kernel, run_kernel, run_plain))
+    k_ms, p_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    own_ms, _, n_rec, _ = device_ms(torch, run_kernel)
+    (b_ms, b_by), _ = fitness_bound(pop[None])
+    share(f"ensemble_fitness[single] {shape}", b_ms, k_ms)
+    print(f"kernel ensemble_fitness[single] at a pareto_front shape (P, M) "
+          f"= {shape}: max abs err {err:.3e}; kernel {k_ms:.6f} ms "
+          f"({k1:.6f}, {k2:.6f}), plain {p_ms:.6f} ms ({p1:.6f}, "
+          f"{p2:.6f}); device {own_ms} ms ({n_rec} of 50 recorded); bound "
+          f"{b_ms:.6e} ms ({b_by}), share {b_ms / k_ms:.6f}")
+    return err, (k_ms, p_ms, b_ms, b_by)
+
+
+def drivers_phase(torch):
+    """Phase 4g: the port's example drivers 1-8 at their full sizes on the
+    card, in process, each through its own main(["--json", path]): its
+    asserts must pass, its rows read back as strict JSON with the
+    expected names, and its fitness launches (reset just before) equal 2
+    G + 1 times its selections (driver_launches). lossy_links runs again
+    on the CPU: its rows must equal the card's. pareto_front's
+    single-client fitness shapes are then timed."""
+    import importlib
+    import tempfile
+
+    from repro_torch.kernels.ensemble_fitness import kernel
+    from repro_torch.obs.metrics import Stopwatch, json_ready
+    from repro_torch.sim.experiment import Experiment
+
+    runs = []
+    inner = Experiment.run
+
+    def recorded_run(self):
+        res = inner(self)
+        runs.append(res)
+        return res
+
+    out, batched, single = {}, set(), {}
+    print(f"drivers: {CARD}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, want_rows in DRIVERS.items():
+            mod = importlib.import_module(f"repro_torch.examples.{name}")
+            path = str(Path(tmp) / f"{name}.json")
+            runs.clear()
+            found = set()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernel.KERNEL.launches = 0
+            sw = Stopwatch().start()
+            Experiment.run = recorded_run
+            try:
+                with recorded_fitness_shapes(found):
+                    rows = mod.main(["--json", path])
+            except AssertionError as e:
+                raise SmokeFailure(f"driver {name}: its own assert failed: "
+                                   f"{e}") from e
+            finally:
+                Experiment.run = inner
+            torch.cuda.synchronize()
+            wall = sw.stop()
+            launches = kernel.KERNEL.launches
+            peak = torch.cuda.max_memory_allocated()
+            parts = driver_launches(name, mod, runs)
+            expect = sum(per * n for per, n in parts.items())
+            doc = _strict_json(path)
+            names = [r["name"] for r in doc]
+            print(f"driver {name}: asserts passed; {len(doc)} rows read back "
+                  f"as strict JSON, names {names}; fitness launches "
+                  f"{launches} (expected {expect} = "
+                  f"{' + '.join(f'{p} x {n}' for p, n in parts.items())}); "
+                  f"{len(runs)} runs; wall {wall:.6f} s; peak device memory "
+                  f"{peak} bytes ({peak / 2**20:.1f} MiB); {CARD}")
+            check(names == want_rows, f"driver {name}: rows {names}, "
+                                      f"expected {want_rows}")
+            check(doc == json.loads(json.dumps(json_ready(rows),
+                                               allow_nan=False)),
+                  f"driver {name}: the rows written differ from those "
+                  "main returned")
+            check(launches == expect, f"driver {name}: {launches} fitness "
+                                      f"launches, expected {expect}")
+            batched |= {s for s in found if len(s) == 3}
+            single[name] = sorted(s for s in found if len(s) == 2)
+            out[name] = {"launches": launches, "expected": expect,
+                         "wall_s": wall, "peak": peak, "runs": len(runs)}
+        runs.clear()
+        mod = importlib.import_module("repro_torch.examples.lossy_links")
+        cpu_path = str(Path(tmp) / "lossy_links_cpu.json")
+        sw = Stopwatch().start()
+        mod.main(["--json", cpu_path, "--device", "cpu"])
+        cpu_s = sw.stop()
+        with open(Path(tmp) / "lossy_links.json") as a, open(cpu_path) as b:
+            same = a.read() == b.read()
+        print(f"driver lossy_links: card rows == CPU rows (full size, "
+              f"CPU {cpu_s:.6f} s): {same}")
+        check(same, "driver lossy_links: the card's rows differ from the "
+                    "CPU's")
+    single = {k: v for k, v in single.items() if v}
+    print(f"drivers: fitness shapes single {single}, batched "
+          f"{sorted(batched)}")
+    check(list(single) == ["pareto_front"], f"drivers: single-client "
+          f"fitness shapes {single}, expected pareto_front's alone")
+    timings, err = {}, 0.0
+    for shape in single["pareto_front"]:   # the population, then 2 P
+        e, timings[shape] = single_fitness_timing(torch, shape)
+        err = max(err, e)
+    out["shapes"] = batched
+    out["single"] = (timings, err)
     return out
 
 
@@ -4301,6 +4470,8 @@ def main() -> int:
     gossip = timed("async config 9", gossip_churn_phase, torch)
     faults = timed("async config 10", faults_phase, torch)
     serve_drift = timed("async config 11", serve_drift_phase, torch)
+    drivers = timed("drivers", drivers_phase, torch)
+    single_timings, single_err = drivers.pop("single")
     timed("compiled configs 13-14", compiled_fleet_phase, torch)
     world = timed("compiled config 15", compiled_world_phase, torch,
                   world_shapes)
@@ -4309,8 +4480,9 @@ def main() -> int:
         "async config 10": faults["shapes"],
         "async config 11": serve_drift.pop("shapes"),
         "async config 12": serve_paper["shapes"],
-        "compiled config 15": world_shapes, "restack": restack_shapes})
-    max_err = max(max_err, path_err)
+        "compiled config 15": world_shapes, "restack": restack_shapes,
+        "drivers": drivers.pop("shapes")})
+    max_err = max(max_err, path_err, single_err)
     timings.update({("batched",) + k: v for k, v in path_timings.items()})
     torch.cuda.empty_cache()
     flash_timings = timed("flash", flash_phase, torch)
@@ -4363,12 +4535,16 @@ def main() -> int:
             "async config 12": serve_paper["launches"],
             "compiled config 15": world["launches"],
             "restack": restack["launches"],
-            "tables (smoke)": tables},
+            "tables (smoke)": tables,
+            **{f"driver {k}": v["launches"] for k, v in drivers.items()}},
         "by_shape": {str(shape): dict(zip(
             ("ms", "plain_ms", "bound_ms", "bound_by"),
             timings[("batched",) + shape]))
             for shape in [(32, 200, 100)] + FITNESS_ASYNC_SHAPES
-            + sorted(path_timings)}}, {
+            + sorted(path_timings)},
+        "single_by_shape": {str(shape): dict(zip(
+            ("ms", "plain_ms", "bound_ms", "bound_by"), t))
+            for shape, t in single_timings.items()}}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",

@@ -1,0 +1,5 @@
+"""``python -m repro_torch.analysis`` — the replint entry point."""
+from repro_torch.analysis.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -76,6 +76,9 @@ GOLDEN = {
 }
 
 
+from _torch_threads import one_thread as _one_thread  # noqa: E402,F401
+
+
 @pytest.fixture(scope="module")
 def ref():
     """The reference package (needs JAX): (Experiment builder, its

@@ -33,16 +33,7 @@ PROB_ATOL = 1e-4
 FAMILIES = ("cnn4", "vgg", "resnet", "densenet", "inception")
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Training loops of tiny CNNs and a GA are thousands of small torch
-    ops: with several test workers on one machine, torch's intra-op
-    threads only contend (the smoke grid ran 200x slower), so this module
-    runs torch on one thread and restores the count after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import one_thread as _one_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -34,15 +34,7 @@ REPAIR = {"interval": 0.5, "start": 0.5, "max_rounds": 40}
 CHURN = {"availability_beta": 0.3, "window": 0.5, "join_spread": 1.0}
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """A tick loop is thousands of small torch ops: with several test
-    workers on one machine, torch's intra-op threads only contend, so
-    this module runs torch on one thread and restores the count after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import one_thread as _one_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -1,4 +1,6 @@
-"""The port stands alone: importing every `repro_torch` module, running
+"""The port stands alone: importing every `repro_torch` module (the
+example drivers and replint included; replint linting its own package
+and a tiny lossy_links run), running
 a tiny synchronous slice, a tiny asynchronous run (lossy gossip, churn,
 repair, bounded stores, observability), one with faults and the
 validation gate and one serving queries through a label shift (the
@@ -28,8 +30,18 @@ REPO = os.path.join(os.path.dirname(__file__), "..")
 SCRIPT = r"""
 import importlib, json, pkgutil, sys
 import repro_torch
-for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
-    importlib.import_module(m.name)
+walked = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in walked:
+    importlib.import_module(name)
+assert {"repro_torch.analysis.rules", "repro_torch.analysis.__main__",
+        "repro_torch.examples.lossy_links",
+        "repro_torch.examples.serve_drift"} <= set(walked)
+from repro_torch.analysis import lint_paths
+from repro_torch.examples import lossy_links
+assert lint_paths([repro_torch.__path__[0] + "/analysis"]).exit_code == 0
+assert lossy_links.run_once(4, 1, 0.1, True, device="cpu")[1]["coverage"] \
+    == 1.0
 from repro_torch.sim import Experiment, ExperimentSpec
 spec = ExperimentSpec.from_dict({
     "data": {"kind": "synthetic_images", "n_clients": 2, "n_classes": 4,

@@ -47,12 +47,7 @@ LR = 1e-2
 ADAMW_GRAD_FLOOR = 1e-4   # of a leaf's largest |gradient|, see the test
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import one_thread as _one_thread  # noqa: E402,F401
 
 
 # ---------------------------------------------------------------------------

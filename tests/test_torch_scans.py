@@ -43,6 +43,9 @@ Y_REL = 1e-5
 STATE = dict(atol=1e-3, rtol=1e-3)
 
 
+from _torch_threads import one_thread as _one_thread  # noqa: E402,F401
+
+
 @pytest.fixture(scope="module")
 def jx():
     """The JAX reference, imported here so the `cuda` cases can run on a

@@ -54,16 +54,7 @@ V, C = 64, 8
 WINDOW_ACC_BAND = 0.1    # free GA runs: the answers depend on the winners
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Whole event-loop runs are thousands of tiny torch ops: with several
-    test workers on one machine, torch's intra-op threads only contend
-    (a run ~100x slower), so this module runs torch on one thread and
-    restores the count after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import one_thread as _one_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -90,12 +90,7 @@ def draw(cfg):
     return ttf.init_params(cfg, torch.Generator().manual_seed(0))
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import one_thread as _one_thread  # noqa: E402,F401
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,9 @@ from repro_torch.optim import schedules as tsched  # noqa: E402
 STEP_TOL = dict(atol=1e-6, rtol=1e-5)
 
 
+from _torch_threads import one_thread as _one_thread  # noqa: E402,F401
+
+
 def _cfgs(arch):
     return (jget_smoke(arch).replace(dtype="float32"),
             get_smoke(arch).replace(dtype="float32"))

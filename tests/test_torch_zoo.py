@@ -50,15 +50,7 @@ VLM, AUDIO = "llama-3.2-vision-11b", "musicgen-medium"
 S = 16
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Smoke models are many tiny torch ops: with several test workers on
-    one machine, torch's intra-op threads only contend, so this module
-    runs torch on one thread and restores the count after it."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_threads import one_thread as _one_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")
