@@ -27,6 +27,10 @@ reference's limits:
   prompts (a ValueError).
 Images and codebooks are served through `launch/steps.py`'s prefill and
 serve steps.
+
+While a profiler records, `serve_batch` opens spans (`obs/spans.py`):
+`serve.call` around the call and `serve.prefill{member=i}` around each
+member's prefill; the vote and the decode are the call's self time.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from repro_torch.data import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.obs.metrics import Stopwatch
+from repro_torch.obs.spans import span
 
 
 @torch.inference_mode()
@@ -48,33 +53,35 @@ def serve_batch(cfg, members, prompts, gen_len: int = 16, weights=None):
     generated (B, gen_len) int32 tokens. len(members) == 1 -> single
     model; > 1 -> FedPAE ensemble."""
     B, S = prompts.shape
-    cache_len = S + gen_len
-    w = np.ones(len(members)) if weights is None else \
-        np.asarray(weights, np.float64)
-    w = w / w.sum()
+    with span("serve.call", device=prompts.device):
+        cache_len = S + gen_len
+        w = np.ones(len(members)) if weights is None else \
+            np.asarray(weights, np.float64)
+        w = w / w.sum()
 
-    caches, prob_sum = [], 0.0
-    for wi, model in zip(w, members):
-        logits, cache = tf.forward(model, cfg, prompts, mode="prefill",
-                                   cache_len=cache_len)
-        caches.append(cache)
-        prob_sum = prob_sum + float(wi) * torch.softmax(
-            logits[:, -1].float(), dim=-1)
-        del logits
-    out = []
-    tok = torch.argmax(prob_sum, dim=-1)[:, None].to(torch.int32)
-    out.append(tok)
-    for g in range(1, gen_len):
-        pos = S + g - 1
-        prob_sum = 0.0
+        caches, prob_sum = [], 0.0
         for i, (wi, model) in enumerate(zip(w, members)):
-            logits, caches[i] = tf.forward(model, cfg, tok, mode="decode",
-                                           cache=caches[i], t=pos)
+            with span("serve.prefill", member=i):
+                logits, cache = tf.forward(model, cfg, prompts, mode="prefill",
+                                           cache_len=cache_len)
+            caches.append(cache)
             prob_sum = prob_sum + float(wi) * torch.softmax(
                 logits[:, -1].float(), dim=-1)
+            del logits
+        out = []
         tok = torch.argmax(prob_sum, dim=-1)[:, None].to(torch.int32)
         out.append(tok)
-    return torch.cat(out, dim=1)
+        for g in range(1, gen_len):
+            pos = S + g - 1
+            prob_sum = 0.0
+            for i, (wi, model) in enumerate(zip(w, members)):
+                logits, caches[i] = tf.forward(model, cfg, tok, mode="decode",
+                                               cache=caches[i], t=pos)
+                prob_sum = prob_sum + float(wi) * torch.softmax(
+                    logits[:, -1].float(), dim=-1)
+            tok = torch.argmax(prob_sum, dim=-1)[:, None].to(torch.int32)
+            out.append(tok)
+        return torch.cat(out, dim=1)
 
 
 def main(argv=None):

@@ -28,6 +28,13 @@ the logits are split over `model` (max and sum over `model`). Prefill
 and serve steps return this rank's shard of the logits (split over
 `model` where the head is) and cache (as `rules.cache_shardings` lays
 it out).
+
+While a profiler records, a train step opens spans (`obs/spans.py`):
+`train.step` around it, `train.forward{microbatch=i}` around the loss,
+`train.backward{microbatch=i}` around the backward (the checkpoint's
+recompute included), `train.accumulate` around the fp32 accumulators'
+creation, each microbatch's add and the final division (microbatches >
+1 only), and `train.optimizer` around the schedule and the update.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ from repro_torch.launch.mesh import (all_reduce_over, batch_shard,
                                      mesh_shape, reduce)
 from repro_torch.models import transformer as tf
 from repro_torch.models.common import ModelConfig, cross_entropy, softcap
+from repro_torch.obs.spans import span
 from repro_torch.optim import make_optimizer
 from repro_torch.sharding.rules import leaf_split, split_factor
 
@@ -120,23 +128,36 @@ def make_train_step(cfg: ModelConfig, opt, lr_fn, mesh=None,
     def train_step(params, opt_state, batch):
         named = dict(params.named_parameters())
         leaves = list(named.values())
+        with span("train.step", device=leaves[0].device):
+            return step_body(params, opt_state, batch, named, leaves)
+
+    def step_body(params, opt_state, batch, named, leaves):
         batch = {k: _local(v, mesh, batch_axes) for k, v in batch.items()}
         if microbatches > 1:
-            loss = torch.zeros((), dtype=torch.float32,
-                               device=leaves[0].device)
-            grads = [torch.zeros_like(p, dtype=torch.float32)
-                     for p in leaves]
+            with span("train.accumulate"):
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=leaves[0].device)
+                grads = [torch.zeros_like(p, dtype=torch.float32)
+                         for p in leaves]
             for i in range(microbatches):
                 b = {k: v[i::microbatches] for k, v in batch.items()}
-                mb_loss = loss_fn(params, b)
-                for acc, g in zip(grads, grads_of(mb_loss, leaves)):
-                    acc.add_(g)
-                loss += mb_loss.detach()
-            loss /= microbatches
-            torch._foreach_div_(grads, float(microbatches))
+                with span("train.forward", microbatch=i):
+                    mb_loss = loss_fn(params, b)
+                with span("train.backward", microbatch=i):
+                    gs = grads_of(mb_loss, leaves)
+                with span("train.accumulate"):
+                    for acc, g in zip(grads, gs):
+                        acc.add_(g)
+                    loss += mb_loss.detach()
+                del gs
+            with span("train.accumulate"):
+                loss /= microbatches
+                torch._foreach_div_(grads, float(microbatches))
         else:
-            loss = loss_fn(params, batch)
-            grads = grads_of(loss, leaves)
+            with span("train.forward", microbatch=0):
+                loss = loss_fn(params, batch)
+            with span("train.backward", microbatch=0):
+                grads = grads_of(loss, leaves)
             loss = loss.detach()
         split = None
         if mesh is not None:
@@ -155,9 +176,10 @@ def make_train_step(cfg: ModelConfig, opt, lr_fn, mesh=None,
             split = {k: {d - p.dim(): mesh.get_group(a)
                          for d, a in leaf_split(p).items()}
                      for k, p in named.items() if leaf_split(p)}
-        lr = lr_fn(opt_state["step"])
-        opt.update(dict(zip(named, grads)), opt_state, named, lr,
-                   split=split)
+        with span("train.optimizer"):
+            lr = lr_fn(opt_state["step"])
+            opt.update(dict(zip(named, grads)), opt_state, named, lr,
+                       split=split)
         return loss
 
     return train_step
