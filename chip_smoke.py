@@ -3501,11 +3501,16 @@ def kernel_layers(cfg, kname, images=False):
     """The layers of one member's prefill that launch `kname`: every
     layer for a scan; for flash_attention every self-attention layer of a
     kv_major config under attn_impl "pallas" (vlm: the cross layers too
-    when no images reach them, as serve_batch passes none), else none."""
+    when no images reach them, as serve_batch passes none; hybrid: each
+    application of the shared block), else none. serve_batch's prefill
+    runs under `serve.prefill_config(cfg)`."""
     if kname != "flash_attention":
         return cfg.n_layers
-    if cfg.attn_impl != "pallas" or cfg.gqa_layout != "kv_major":
+    if cfg.attn_impl != "pallas" or cfg.gqa_layout != "kv_major" \
+            or cfg.family == "ssm":
         return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
     if cfg.family == "vlm":
         n_super = cfg.n_layers // cfg.cross_attn_every
         return n_super * (cfg.cross_attn_every - int(images))
@@ -3571,16 +3576,18 @@ def moe_repeat_check(torch, cfg, member, prompts, arch):
 def serve_phase(torch, arch, overrides, kname="flash_attention"):
     """Two full-width members of `arch` (its depth cut as `overrides`
     say) served through serve_batch; the prefill layers of the family
-    that run kernel `kname` (kernel_layers) must launch it."""
+    that run kernel `kname`, and those that run flash_attention, must
+    launch it (kernel_layers). Returns {kernel: launches of a call}."""
     import importlib
 
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
-    from repro_torch.launch.serve import serve_batch
+    from repro_torch.launch.serve import prefill_config, serve_batch
     from repro_torch.models import transformer as tf
     from repro_torch.obs.metrics import Stopwatch
 
-    kernel = importlib.import_module(f"repro_torch.kernels.{kname}.kernel")
+    kernels = {k: importlib.import_module(f"repro_torch.kernels.{k}.kernel")
+               for k in dict.fromkeys((kname, "flash_attention"))}
     cfg = get_config(arch).replace(**overrides)
     B, S, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen_len"]
     members = serve_members(torch, arch, cfg, "serve_batch")
@@ -3590,18 +3597,20 @@ def serve_phase(torch, arch, overrides, kname="flash_attention"):
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
-    kernel.KERNEL.launches = 0
+    for kernel in kernels.values():
+        kernel.KERNEL.launches = 0
     sw = Stopwatch().start()
     toks = serve_batch(cfg, members, prompts, gen_len=G)
     torch.cuda.synchronize()
     total = sw.stop()
-    launches = kernel.KERNEL.launches
+    launches = {k: kernel.KERNEL.launches for k, kernel in kernels.items()}
     peak = torch.cuda.max_memory_allocated()
-    expect = kernel_layers(cfg, kname) * len(members)
-    print(f"serve {arch}: {kname} launches {launches}, expected its layers "
-          f"x members = {expect}")
-    check(launches == expect, f"{kname} launched {launches} times in "
-                              f"serve_batch of {arch}, expected {expect}")
+    for k, n in launches.items():
+        expect = kernel_layers(prefill_config(cfg), k) * len(members)
+        print(f"serve {arch}: {k} launches {n}, expected its layers x "
+              f"members = {expect}")
+        check(n == expect, f"{k} launched {n} times in serve_batch of "
+                           f"{arch}, expected {expect}")
     check(tuple(toks.shape) == (B, G) and toks.dtype == torch.int32
           and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab,
           f"bad served tokens: shape {tuple(toks.shape)}, range "
@@ -3646,7 +3655,7 @@ def serve_phase(torch, arch, overrides, kname="flash_attention"):
           f"logit of both members finite: {finite}")
     check(finite, f"{arch}: non-finite logits")
 
-    if expect and kname == "flash_attention":
+    if launches[kname] and kname == "flash_attention":
         pallas_vs_xla(torch, cfg, members[0], {"tokens": prompts}, arch)
     del members, prompts
     torch.cuda.empty_cache()
@@ -4492,13 +4501,16 @@ def main() -> int:
     ssd_bwd = timed("ssd_scan_bwd", ssd_bwd_phase, torch)
     timed("model check", model_check_phase, torch)
     timed("train check", train_check_phase, torch)
-    served = {kname: timed(f"serve {arch}", serve_phase, torch, arch,
-                           overrides, kname)
+    served = {arch: timed(f"serve {arch}", serve_phase, torch, arch,
+                          overrides, kname)
               for arch, overrides, kname in SERVES}
-    flash_paths = {"llama3-8b serve_batch": served["flash_attention"]}
+    by_kernel = {kname: served[arch][kname] for arch, _, kname in SERVES}
+    flash_paths = {f"{arch} serve_batch": n["flash_attention"]
+                   for arch, n in served.items() if n["flash_attention"]}
     for arch, overrides in ZOO_SERVES:
         flash_paths[f"{arch} serve_batch"] = timed(
-            f"serve {arch}", serve_phase, torch, arch, overrides)
+            f"serve {arch}", serve_phase, torch, arch,
+            overrides)["flash_attention"]
     for arch in ZOO_STEP_SERVES:
         for path, n in timed(f"serve {arch}", step_serve_phase, torch,
                              arch).items():
@@ -4548,7 +4560,8 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:103",
-        "launches": served["flash_attention"], "max_abs_err": flash["err"],
+        "launches": by_kernel["flash_attention"],
+        "max_abs_err": flash["err"],
         "ms": flash["ms"], "plain_ms": flash["plain_ms"],
         "bound_ms": flash["bound_ms"], "bound_by": flash["bound_by"],
         "library_ms": flash["library_ms"],
@@ -4559,7 +4572,7 @@ def main() -> int:
         "name": kname, "route": "cuda",
         "source": f"src/repro_torch/csrc/{kname}.cu",
         "replaces": f"src/repro/kernels/{kname}/kernel.py:{line}",
-        "launches": served[kname],
+        "launches": by_kernel[kname],
         "max_abs_err": scans[kname]["err"], "ms": scans[kname]["ms"],
         "plain_ms": scans[kname]["plain_ms"],
         "bound_ms": scans[kname]["bound_ms"],

@@ -15,9 +15,13 @@ tensors and the kernel's plain version on CPU tensors: with
 `attn_impl="pallas"` every self-attention layer of the kv_major configs
 (dense, moe, vlm, audio) runs flash_attention (the g_major
 qwen3-moe-235b-a22b takes the plain path, as in the reference); every
-rwkv6 layer runs wkv_scan and every zamba2 Mamba2 layer ssd_scan
-(zamba2's shared attention keeps its config's plain "xla" path). Decode
-is plain PyTorch, as in the reference. Two families keep the
+rwkv6 layer runs wkv_scan and every zamba2 Mamba2 layer ssd_scan. The
+prefill runs under `attn_impl="pallas"` whatever the config says
+wherever the kernel computes the config's own attention
+(`attention.kernel_computes`: kv_major, no per-layer window, a head dim
+the kernel takes), so zamba2's shared attention and the "xla" dense
+configs take flash_attention too.
+Decode is plain PyTorch, as in the reference. Two families keep the
 reference's limits:
 - vlm is served text-only: no image embeddings reach `forward`, so each
   cross layer attends causally to its own input in the prefill (through
@@ -43,8 +47,15 @@ from repro_torch.configs import get_smoke
 from repro_torch.data import TokenPipeline
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as tf
+from repro_torch.models.attention import kernel_computes
 from repro_torch.obs.metrics import Stopwatch
 from repro_torch.obs.spans import span
+
+
+def prefill_config(cfg):
+    """The config the members' prefill runs under: `attn_impl="pallas"`
+    where the kernel computes the config's own attention, else `cfg`."""
+    return cfg.replace(attn_impl="pallas") if kernel_computes(cfg) else cfg
 
 
 @torch.inference_mode()
@@ -59,11 +70,12 @@ def serve_batch(cfg, members, prompts, gen_len: int = 16, weights=None):
             np.asarray(weights, np.float64)
         w = w / w.sum()
 
+        pcfg = prefill_config(cfg)
         caches, prob_sum = [], 0.0
         for i, (wi, model) in enumerate(zip(w, members)):
             with span("serve.prefill", member=i):
-                logits, cache = tf.forward(model, cfg, prompts, mode="prefill",
-                                           cache_len=cache_len)
+                logits, cache = tf.forward(model, pcfg, prompts,
+                                           mode="prefill", cache_len=cache_len)
             caches.append(cache)
             prob_sum = prob_sum + float(wi) * torch.softmax(
                 logits[:, -1].float(), dim=-1)

@@ -39,6 +39,7 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.launch.mesh import (all_gather_over, all_reduce_over,
                                      all_to_all_over, gather)
@@ -139,6 +140,18 @@ def attn_core(q, k, v, q_pos, k_pos, window, attn_softcap, causal=True,
         lse = torch.logsumexp(scores, dim=-1).permute(*order)
         return out, lse.reshape(B, Sq, H)
     return out
+
+
+def kernel_computes(cfg: ModelConfig) -> bool:
+    """True where `attn_impl="pallas"` computes the same full-sequence
+    causal prefill as the config's plain core: the kv_major head layout
+    (g_major takes the plain core either way), no per-layer window (the
+    kernel branch below drops the windows `transformer.forward` hands it
+    as tensors, as the reference's does, so a windowed config would serve
+    another function), and a head dim the kernel is built for."""
+    windowed = cfg.attn_pattern == "local_global" and cfg.local_window
+    return (cfg.gqa_layout == "kv_major" and not windowed
+            and cfg.decode_window == 0 and cfg.hd in HEAD_DIMS)
 
 
 def _attend(cfg, q, k, v, positions, k_pos, window, causal):
