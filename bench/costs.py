@@ -4,8 +4,12 @@ alone (so they read the same work whatever implements the kernel), and
 the model FLOPs that the mfu metrics count. The kernel counts are a
 frozen copy of `chip_smoke.py`'s (`ssd_cost`, `wkv_cost`,
 `wkv_bwd_cost`, `roofline`), which set PERF.md's kernel table;
-`test_bench_costs.py` holds them equal."""
+`test_bench_harness.py` holds them equal (`ssd_cost` at one B/C group,
+chip_smoke.py's only case). What a configuration runs of each (its scan
+shapes, its attention) is its family's (`families/<equations>.py`)."""
 from __future__ import annotations
+
+from bench import families
 
 PEAK_FP32_FLOPS = 67e12       # H100 SXM, fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
@@ -29,13 +33,14 @@ def _ops_time(fp32, tc, fp32_rate, elem_bytes, terms=TERMS):
     return (terms * fp32 + tc) / PEAK_BF16_FLOPS
 
 
-def ssd_cost(Bb, S, nh, hd, ds, elem_bytes):
+def ssd_cost(Bb, S, nh, hd, ds, elem_bytes, groups=1):
     """The ssd_scan call's bytes (x, B, C and y in the activation type,
     dt, A_log, D and h_T in fp32, each moved once) and least multiply-add
     work, as (bytes, fp32-factor FLOP, exact bf16 FLOP), by `fp32_rate`:
     the chunked form's at the chunk size that needs least time (see
-    chip_smoke.py)."""
-    nbytes = (elem_bytes * (2 * Bb * S * nh * hd + 2 * Bb * S * ds)
+    chip_smoke.py). B and C come in `groups` groups of heads, each its
+    own (S, ds) and its own C B^T."""
+    nbytes = (elem_bytes * (2 * Bb * S * nh * hd + 2 * Bb * S * ds * groups)
               + 4 * (Bb * S * nh + 2 * nh + Bb * nh * hd * ds))
     out = {}
     for fp32_rate in (False, True):
@@ -43,7 +48,7 @@ def ssd_cost(Bb, S, nh, hd, ds, elem_bytes):
         for Q in _chunk_sizes(S):
             fp32 = Bb * nh * (S // Q) * (Q * (Q + 1) * hd + 4 * Q * hd * ds
                                          + hd * ds)
-            cb = Bb * (S // Q) * Q * (Q + 1) * ds
+            cb = Bb * (S // Q) * Q * (Q + 1) * ds * groups
             if elem_bytes != 2:
                 fp32, cb = fp32 + cb, 0
             t = _ops_time(fp32, cb, fp32_rate, elem_bytes)
@@ -97,33 +102,28 @@ def wkv_bwd_bound_s(B, S, nh, hd):
                     TERMS_F32)[0] * 1e-3
 
 
-def ssd_bound_s(B, S, nh, hd, ds):
-    return roofline(*ssd_cost(B, S, nh, hd, ds, 2)[False], False, 2,
+def ssd_bound_s(B, S, nh, hd, ds, groups=1):
+    return roofline(*ssd_cost(B, S, nh, hd, ds, 2, groups)[False], False, 2,
                     TERMS)[0] * 1e-3
 
 
 # --- model FLOPs (the mfu metrics) ---
 
 def scan_flops(arch: dict, B: int, S: int) -> float:
-    """The scans' least FLOP of one member's forward over (B, S)."""
-    if arch["equations"] == "rwkv6":
-        hd = arch["rwkv_head_dim"]
-        nh = arch["d_model"] // hd
-        return arch["n_layers"] * wkv_cost(B, S, nh, hd, 2, True)[False][1]
-    di = arch["ssm_expand"] * arch["d_model"]
-    _, f32, cb = ssd_cost(B, S, di // arch["ssm_head_dim"],
-                          arch["ssm_head_dim"], arch["ssm_state"], 2)[False]
-    return arch["n_layers"] * (f32 + cb)
+    """The scans' least FLOP of one member's forward over (B, S), as its
+    family counts them."""
+    return families.get(arch).scan_flops(arch, B, S)
 
 
 def attention_flops(arch: dict, B: int, S: int) -> float:
-    """Causal attention's QK^T and PV FLOP of one member over (B, S): the
-    shared blocks' applications (none for rwkv6)."""
-    if arch["equations"] != "zamba2":
+    """Causal attention's QK^T and PV FLOP of one member over (B, S): its
+    family's applications a member (none where it has no attention)."""
+    att = families.get(arch).attention(arch)
+    if att is None:
         return 0.0
-    uses = arch["n_layers"] // arch["shared_attn_every"]
+    uses, H, _, hd = att
     pairs = S * (S + 1) / 2
-    return uses * 2 * 2 * B * arch["n_heads"] * pairs * arch["head_dim"]
+    return uses * 2 * 2 * B * H * pairs * hd
 
 
 def score_flops(arch: dict, n_body: int, B: int, S: int) -> float:

@@ -7,8 +7,10 @@ A cell (an entry of `workloads` in BENCHMARK.json) names a configuration
 own data (ensemble size, what is checked, the limits of `correct`) is
 `cells/<cell>.json`; the mix's `kind` names its driver
 (`drivers/<kind>.py`); each per-layer metric is read by
-`metrics/<metric>.py`. A later cell, mix, configuration or metric is a
-new file under those names and needs no edit here.
+`metrics/<metric>.py`; the configuration's `as_run["equations"]` names
+its model family (`families/<equations>.py`). A later cell, mix,
+configuration, family or metric is a new file under those names and
+needs no edit here.
 """
 from __future__ import annotations
 

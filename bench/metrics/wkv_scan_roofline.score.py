@@ -3,10 +3,11 @@ of the traced scoring calls, over the device time of the kernel's
 launches (its three kernels by name), in %. Each launch of
 `wkv_scan_chunk` is one call, priced by costs.wkv_bound_s at the (B, L)
 of the scoring call it ran in, with the heads and head size of the
-configuration and its zero initial state."""
+configuration's family (`wkv`) and its zero initial state; None for a
+family without the kernel."""
 import re
 
-from bench import costs
+from bench import costs, families
 from bench.trace import kernel_seconds, launch_calls
 
 KERNELS = re.compile(r"\bwkv_scan_(state|pass|chunk)\b")
@@ -15,12 +16,12 @@ CALLS = re.compile(r"\bwkv_scan_chunk\b")
 
 def read(run):
     tr, calls, a = run.get("trace"), run.get("calls"), run["arch"]
-    if not tr or not calls or a["equations"] != "rwkv6":
+    shape = families.get(a).wkv(a)
+    if not tr or not calls or shape is None:
         return None
     secs, n = kernel_seconds(tr, KERNELS)
     if not n:
         return None
-    hd = a["rwkv_head_dim"]
-    bound = sum(costs.wkv_bound_s(*calls[j], a["d_model"] // hd, hd)
+    bound = sum(costs.wkv_bound_s(*calls[j], *shape)
                 for j in launch_calls(tr, CALLS) if j >= 0)
     return 100.0 * bound / secs

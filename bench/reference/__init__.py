@@ -17,19 +17,21 @@ def exact_weights(flat: dict):
 
 
 def fp8_round(t):
-    """A 2-d weight through float8 e4m3 with one scale per output column
-    (its last dim), back in float32: the step below bf16 that the
-    control takes."""
-    s = t.float().abs().amax(dim=0, keepdim=True).clamp_min(1e-12) / 448.0
+    """A weight matrix, or a stack of them (an expert layer's), through
+    float8 e4m3 with one scale per output column of each matrix (its amax
+    over dim -2), back in float32: the step below bf16 that the control
+    takes."""
+    s = t.float().abs().amax(dim=-2, keepdim=True).clamp_min(1e-12) / 448.0
     return (t.float() / s).to(torch.float8_e4m3fn).float() * s
 
 
 def fp8_weights(flat: dict):
-    """w(name): every bf16 matrix (projections, embedding, head) through
-    `fp8_round`; the fp32 leaves as they are."""
+    """w(name): every bf16 leaf of 2 dims or more (projections, expert
+    stacks, embedding, head) through `fp8_round`; the fp32 leaves as they
+    are."""
     def w(name):
         t = flat[name]
-        if t.dtype == torch.bfloat16 and t.dim() == 2:
+        if t.dtype == torch.bfloat16 and t.dim() >= 2:
             return fp8_round(t)
         return t.float()
     return w

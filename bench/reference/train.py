@@ -49,7 +49,7 @@ def train(arch: dict, flat: dict, batches: list, mix: dict,
     params = {n: flat[n].to(torch.float32, copy=True).requires_grad_()
               for n in names}
     low = {n for n in names if flat[n].dtype == torch.bfloat16
-           and flat[n].dim() == 2}
+           and flat[n].dim() >= 2}
     opt, sch = mix["optimizer"], mix["schedule"]
     mb = mix["microbatches"]
 

@@ -1,7 +1,8 @@
 """The benchmark's reference and weights against the port, on the CPU at
-the port's smoke widths: the weight layouts match the port's parameter
-tree, and the reference's float32 forward, soft vote and training step
-agree with the port's CPU path in float32."""
+the port's smoke widths: for every score cell of BENCHMARK.json, the
+weight layout matches the port's parameter tree, and the reference's
+float32 forward and soft vote agree with the port's CPU path in float32;
+so does the training step."""
 from __future__ import annotations
 
 import sys
@@ -16,7 +17,8 @@ from bench import harness, reference, weights  # noqa: E402
 from bench.drivers import score  # noqa: E402
 from bench.reference import layers, models  # noqa: E402
 
-CELLS = ["rwkv6-3b.score", "zamba2-7b.score"]
+CELLS = [w["name"] for w in harness.benchmark()["workloads"]
+         if harness.Cell(w["name"]).kind == "score"]
 
 
 @pytest.fixture(autouse=True)
@@ -130,6 +132,26 @@ def test_fp8_control_rounds_below_bf16():
     q = reference.fp8_round(w)
     rel = ((q - w).abs() / w.abs().amax(0)).max()
     assert 1e-3 < float(rel) < 0.07
+
+
+def test_fp8_control_rounds_stacks():
+    """A 3-d bf16 stack goes through float8 matrix by matrix, each with
+    its own scale per output column; a 2-d leaf rounds as it did with one
+    scale per column (amax over dim 0); fp32 leaves stay exact."""
+    g = torch.Generator().manual_seed(5)
+    stack = (torch.randn(3, 64, 32, generator=g)
+             * torch.tensor([1.0, 10.0, 0.1])[:, None, None]).bfloat16()
+    mat = torch.randn(64, 32, generator=g).bfloat16()
+    vec = torch.randn(32, generator=g)
+    w = reference.fp8_weights({"stack": stack, "mat": mat, "vec": vec})
+    got = w("stack")
+    assert not torch.equal(got, stack.float())
+    for e in range(3):
+        assert torch.equal(got[e], reference.fp8_round(stack[e]))
+    m = mat.float()
+    s = m.abs().amax(dim=0, keepdim=True).clamp_min(1e-12) / 448.0
+    assert torch.equal(w("mat"), (m / s).to(torch.float8_e4m3fn).float() * s)
+    assert torch.equal(w("vec"), vec)
 
 
 def test_reference_training_matches_port_fp32():
